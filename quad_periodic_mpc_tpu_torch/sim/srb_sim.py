@@ -1,0 +1,121 @@
+"""Analytic SRB plant with periodic disturbance injection
+(counterpart of ``quad_periodic_mpc_tpu/sim/srb_sim.py``).
+
+The plant is the same single-rigid-body model the MPC linearizes, stepped
+with the exact nilpotent ZOH at the control dt and re-linearized about the
+current orientation every step, plus the reference experiment's
+disturbance F_x = d_s + d_n sin(2 pi f t + phi) (raisim_unitree_ros_driver
+defaults d_s = -10 N, d_n = 15 N, f = 0.33 Hz) injected through the Q_d
+channel as an acceleration F/m.  The wrench disturbance and terrain
+ground functions are not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from quad_periodic_mpc_tpu_torch.config import MPCConfig
+from quad_periodic_mpc_tpu_torch.models import srb
+from quad_periodic_mpc_tpu_torch.models.a1 import A1
+from quad_periodic_mpc_tpu_torch.ops import discretize
+from quad_periodic_mpc_tpu_torch.ops.rotations import rpy_to_quat, rpy_to_rotmat
+
+
+class DisturbanceParams(NamedTuple):
+    """F_x = static + amp * sin(2 pi freq t + phase), applied at the base."""
+
+    static: torch.Tensor   # (...,) N
+    amp: torch.Tensor      # (...,) N
+    freq: torch.Tensor     # (...,) Hz
+    phase: torch.Tensor    # (...,) rad
+
+    @staticmethod
+    def reference(batch: tuple = (), dtype=torch.float32, device="cuda"):
+        """The paper's test signal (raisim_unitree_ros_driver.cpp:606)."""
+        f = lambda v: torch.full(batch, v, dtype=dtype, device=device)
+        return DisturbanceParams(f(-10.0), f(15.0), f(0.33), f(0.0))
+
+
+class PlantState(NamedTuple):
+    x: torch.Tensor        # (..., 13) SRB state [rpy, p, omega, v, -g]
+    p_feet: torch.Tensor   # (..., 4, 3) foot positions, world
+    t: torch.Tensor        # (...,) sim time
+
+
+def init_plant(
+    batch: tuple = (),
+    body_height: float = 0.29,
+    model_hips=None,
+    dtype=torch.float32,
+    device="cuda",
+) -> PlantState:
+    """Robot standing at the origin with feet under the hips."""
+    hips = np.asarray(model_hips if model_hips is not None else A1.hip_locations())
+    feet = hips.copy()
+    feet[:, 2] = 0.0
+    feet[:, 1] += np.asarray(A1.side_signs()) * A1.leg.abad_link_length
+    x = np.zeros(13)
+    x[5] = body_height
+    x[12] = -9.8
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    return PlantState(
+        x=t(x).expand(batch + (13,)).clone(),
+        p_feet=t(feet).expand(batch + (4, 3)).clone(),
+        t=torch.zeros(batch, dtype=dtype, device=device),
+    )
+
+
+def disturbance_wrench(dist: DisturbanceParams, t: torch.Tensor, mass: float) -> torch.Tensor:
+    """(..., 6) acceleration-space wrench [tau_acc(3); lin_acc(3)]."""
+    two_pi = torch.tensor(2.0 * math.pi, dtype=t.dtype, device=t.device)
+    fx = dist.static + dist.amp * torch.sin(two_pi * dist.freq * t + dist.phase)
+    zeros = torch.zeros_like(fx)
+    return torch.stack([zeros, zeros, zeros, fx / mass, zeros, zeros], dim=-1)
+
+
+def step(
+    plant: PlantState,
+    forces: torch.Tensor,
+    p_foot_des: torch.Tensor,
+    stance_mask: torch.Tensor,
+    dist: DisturbanceParams,
+    cfg: MPCConfig,
+    dt: float,
+    ground_fn=None,
+) -> PlantState:
+    """One plant step of length dt.  forces: (..., 4, 3) world-frame ground
+    reactions (only stance feet push); swing feet follow p_foot_des."""
+    if ground_fn is not None:
+        raise NotImplementedError(
+            "terrain ground functions are not ported yet, see ROADMAP.md Queue 1")
+    rpy = plant.x[..., 0:3]
+    p = plant.x[..., 3:6]
+    R = rpy_to_rotmat(rpy)
+    r_feet = plant.p_feet - p[..., None, :]
+    A, B, Qc = srb.ct_dynamics(R, r_feet, cfg.mass, cfg.inertia_body)
+    Adt, Bdt, Qdt = discretize.nilpotent_zoh(A, B, Qc, dt)
+
+    u = (forces * stance_mask[..., None]).reshape(forces.shape[:-2] + (12,))
+    w = disturbance_wrench(dist, plant.t, cfg.mass)
+    mv = lambda M, v: (M @ v[..., None])[..., 0]
+    x_new = mv(Adt, plant.x) + mv(Bdt, u) + mv(Qdt, w)
+    feet_new = torch.where(stance_mask[..., None] > 0.5, plant.p_feet, p_foot_des)
+    return PlantState(x=x_new, p_feet=feet_new, t=plant.t + dt)
+
+
+def observe(plant: PlantState):
+    """PlantState -> controller Observation (cheater-mode ground truth)."""
+    from quad_periodic_mpc_tpu_torch.control.mpc import Observation
+
+    rpy = plant.x[..., 0:3]
+    return Observation(
+        p=plant.x[..., 3:6],
+        v=plant.x[..., 9:12],
+        quat=rpy_to_quat(rpy),
+        omega=plant.x[..., 6:9],
+        p_feet=plant.p_feet,
+    )

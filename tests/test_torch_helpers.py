@@ -1,0 +1,330 @@
+"""The port's small modules against the JAX package, and its hygiene.
+
+Inputs are made with numpy from a seed and handed to both packages.  Each
+tolerance is stated with its reason; "exact" means the two compute the same
+f32 operations in the same order.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from quad_periodic_mpc_tpu import config as j_config
+from quad_periodic_mpc_tpu.models import a1 as j_a1
+from quad_periodic_mpc_tpu.models import srb as j_srb
+from quad_periodic_mpc_tpu.ops import condense as j_condense
+from quad_periodic_mpc_tpu.ops import constraints as j_con
+from quad_periodic_mpc_tpu.ops import discretize as j_disc
+from quad_periodic_mpc_tpu.ops import estimator as j_est
+from quad_periodic_mpc_tpu.ops import gait as j_gait
+from quad_periodic_mpc_tpu.ops import linalg as j_linalg
+from quad_periodic_mpc_tpu.ops import rotations as j_rot
+from quad_periodic_mpc_tpu.ops import swing as j_swing
+from quad_periodic_mpc_tpu_torch import config as t_config
+from quad_periodic_mpc_tpu_torch import convert
+from quad_periodic_mpc_tpu_torch.models import a1 as t_a1
+from quad_periodic_mpc_tpu_torch.models import srb as t_srb
+from quad_periodic_mpc_tpu_torch.ops import condense as t_condense
+from quad_periodic_mpc_tpu_torch.ops import constraints as t_con
+from quad_periodic_mpc_tpu_torch.ops import discretize as t_disc
+from quad_periodic_mpc_tpu_torch.ops import estimator as t_est
+from quad_periodic_mpc_tpu_torch.ops import gait as t_gait
+from quad_periodic_mpc_tpu_torch.ops import linalg as t_linalg
+from quad_periodic_mpc_tpu_torch.ops import rotations as t_rot
+from quad_periodic_mpc_tpu_torch.ops import swing as t_swing
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# f32 elementwise math with transcendental functions: libm (XLA) and
+# torch's vectorized sin/cos/atan2 differ by a few ulp
+TRIG_ATOL = 2e-6
+
+
+def j(a):
+    return jnp.asarray(np.asarray(a, np.float32))
+
+
+def t(a):
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+def close(tt, jj, atol, rtol=0.0):
+    np.testing.assert_allclose(
+        tt.detach().numpy(), np.asarray(jj), atol=atol, rtol=rtol)
+
+
+def test_import_leaves_jax_out():
+    """Importing every module of the port loads neither JAX nor the JAX
+    package (a fresh interpreter: this one has imported both)."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import quad_periodic_mpc_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'quad_periodic_mpc_tpu'"
+        " or m.startswith('quad_periodic_mpc_tpu.')]\n"
+        "print(len([m for m in sys.modules if m.startswith(p.__name__)]))\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+        timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20      # every module was imported
+
+
+@pytest.mark.parametrize("name", [
+    "MPCConfig", "ADMMConfig", "PDIPConfig", "EstimatorConfig",
+    "SwingConfig", "LoopConfig"])
+def test_config_defaults_equal_reference(name):
+    ref = dataclasses.asdict(getattr(j_config, name)())
+    port = dataclasses.asdict(getattr(t_config, name)())
+    assert port == ref
+    assert t_config.LoopConfig().dt_mpc == j_config.LoopConfig().dt_mpc
+
+
+def test_a1_constants_equal_reference():
+    jm, tm = j_a1.A1, t_a1.A1
+    assert dataclasses.asdict(tm) == dataclasses.asdict(jm)
+    np.testing.assert_array_equal(tm.hip_locations(), jm.hip_locations())
+    np.testing.assert_array_equal(tm.side_signs(), jm.side_signs())
+
+
+def test_rotations_match():
+    rng = np.random.default_rng(0)
+    rpy = rng.uniform(-1.0, 1.0, (16, 3))
+    q = rng.normal(size=(16, 4))
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    v = rng.normal(size=(16, 3))
+    close(t_rot.quat_to_rpy(t(q)), j_rot.quat_to_rpy(j(q)), TRIG_ATOL)
+    close(t_rot.quat_to_rotmat(t(q)), j_rot.quat_to_rotmat(j(q)), TRIG_ATOL)
+    close(t_rot.rpy_to_rotmat(t(rpy)), j_rot.rpy_to_rotmat(j(rpy)), TRIG_ATOL)
+    close(t_rot.rpy_to_quat(t(rpy)), j_rot.rpy_to_quat(j(rpy)), TRIG_ATOL)
+    close(t_rot.skew(t(v)), j_rot.skew(j(v)), 0.0)
+
+
+def _srb_inputs(seed=1, B=6):
+    rng = np.random.default_rng(seed)
+    rpy = rng.uniform(-0.3, 0.3, (B, 3))
+    R = np.asarray(j_rot.rpy_to_rotmat(j(rpy)))
+    r_feet = rng.uniform(-0.3, 0.3, (B, 4, 3))
+    x_drag = rng.uniform(-0.5, 0.5, B)
+    return R, r_feet, x_drag
+
+
+def test_srb_ct_dynamics_and_pack_state_match():
+    """1e-6: the 3x3 inverse-inertia products sum in another order."""
+    R, r_feet, x_drag = _srb_inputs()
+    I = (0.07, 0.26, 0.242)
+    A_t, B_t, Q_t = t_srb.ct_dynamics(t(R), t(r_feet), 12.0, I, t(x_drag))
+    A_j, B_j, Q_j = j_srb.ct_dynamics(j(R), j(r_feet), 12.0, j(I), j(x_drag))
+    close(A_t, A_j, 0.0)
+    close(B_t, B_j, 1e-6, 1e-6)
+    close(Q_t, Q_j, 0.0)
+    rng = np.random.default_rng(2)
+    parts = [rng.normal(size=(5, 3)) for _ in range(4)]
+    close(t_srb.pack_state(*map(t, parts), 9.8),
+          j_srb.pack_state(*map(j, parts), 9.8), 0.0)
+
+
+def test_nilpotent_zoh_matches_reference_and_matrix_exp():
+    """Against the JAX closed form (1e-6, reordered f32 sums) and against
+    torch.linalg.matrix_exp of the augmented 31x31 block in float64 (the
+    reference's c2qp construction): 1e-6 is f32 roundoff on O(dt) entries."""
+    R, r_feet, x_drag = _srb_inputs(seed=3)
+    I = (0.07, 0.26, 0.242)
+    dt = 0.026
+    A, B, Qc = t_srb.ct_dynamics(t(R), t(r_feet), 12.0, I, t(x_drag))
+    Ad, Bd, Qd = t_disc.nilpotent_zoh(A, B, Qc, dt)
+    Aj, Bj, Qj = j_srb.ct_dynamics(j(R), j(r_feet), 12.0, j(I), j(x_drag))
+    for got, want in zip((Ad, Bd, Qd), j_disc.nilpotent_zoh(Aj, Bj, Qj, dt)):
+        close(got, want, 1e-6)
+    n, m, w = 13, 12, 6
+    aug = torch.zeros(A.shape[0], n + m + w, n + m + w, dtype=torch.float64)
+    aug[:, :n, :n] = A.double()
+    aug[:, :n, n:n + m] = B.double()
+    aug[:, :n, n + m:] = Qc.double()
+    e = torch.linalg.matrix_exp(dt * aug)
+    close(Ad.double(), e[:, :n, :n], 1e-6)
+    close(Bd.double(), e[:, :n, n:n + m], 1e-6)
+    close(Qd.double(), e[:, :n, n + m:], 1e-6)
+
+
+def test_constraints_and_weights_match():
+    rng = np.random.default_rng(4)
+    table = rng.integers(0, 2, (3, 10, 4)).astype(np.int32)
+    close(t_con.pyramid_block(0.4, device="cpu"), j_con.pyramid_block(0.4), 0.0)
+    l_t, u_t = t_con.bounds(torch.from_numpy(table), 120.0, 5e10)
+    l_j, u_j = j_con.bounds(jnp.asarray(table), 120.0, 5e10)
+    close(l_t, l_j, 0.0)
+    close(u_t, u_j.astype(jnp.float32), 0.0)
+    w = rng.uniform(0, 10, 12)
+    close(t_condense.full_weight(t(w)), j_condense.full_weight(j(w)), 0.0)
+
+
+@pytest.mark.parametrize("name", ["trotting", "walking", "pacing", "two_leg_balance"])
+def test_gait_tables_match_exactly(name):
+    jg = j_gait.preset(name)
+    tg = t_gait.preset(name, device="cpu")
+    for f in jg._fields:
+        np.testing.assert_array_equal(getattr(tg, f).numpy(), np.asarray(getattr(jg, f)))
+    it = np.arange(0, 520, 7, dtype=np.int32)
+    ti, ji = torch.from_numpy(it), jnp.asarray(it)
+    ph_t, ph_j = t_gait.phase(tg, ti, 13), j_gait.phase(jg, ji, 13)
+    close(ph_t, ph_j, 0.0)
+    close(t_gait.contact_state(tg, ph_t), j_gait.contact_state(jg, ph_j), 0.0)
+    close(t_gait.swing_state(tg, ph_t), j_gait.swing_state(jg, ph_j), 0.0)
+    seg_t, seg_j = t_gait.segment_index(tg, ti, 13), j_gait.segment_index(jg, ji, 13)
+    np.testing.assert_array_equal(seg_t.numpy(), np.asarray(seg_j))
+    np.testing.assert_array_equal(
+        t_gait.mpc_table(tg, seg_t, 10).numpy(), np.asarray(j_gait.mpc_table(jg, seg_j, 10)))
+    close(t_gait.swing_time(tg, 0.026), j_gait.swing_time(jg, 0.026), 0.0)
+    close(t_gait.stance_time(tg, 0.026), j_gait.stance_time(jg, 0.026), 0.0)
+
+
+@pytest.mark.parametrize("n", [6, 12])
+def test_spd_inverse_matches(n):
+    """Same Schur recursion and split: rtol 1e-5 allows reordered sums in
+    the small products on a condition-~100 matrix."""
+    rng = np.random.default_rng(n)
+    A = rng.normal(size=(4, n, n))
+    M = A @ np.swapaxes(A, -1, -2) + n * np.eye(n)
+    close(t_linalg.spd_inverse(t(M)), j_linalg.spd_inverse(j(M)), 1e-7, 1e-5)
+
+
+def _residual_inputs(seed=5, B=6):
+    rng = np.random.default_rng(seed)
+    R, r_feet, x_drag = _srb_inputs(seed, B)
+    x_k = rng.normal(size=(B, 13))
+    x_prev = rng.normal(size=(B, 13))
+    forces = rng.uniform(-20, 60, (B, 4, 3))
+    return x_k, x_prev, forces, R, r_feet, x_drag
+
+
+def test_residuals_match():
+    """Disturbance residuals: 1e-4 absolute on O(10) accelerations (the
+    discrete one divides by dt-scaled normal equations, ~1e-5 relative)."""
+    x_k, x_prev, forces, R, r_feet, x_drag = _residual_inputs()
+    I = (0.07, 0.26, 0.242)
+    got = t_est.residual_discrete(
+        t(x_k), t(x_prev), t(forces), t(R), t(r_feet), 12.0, I, t(x_drag), 0.026)
+    want = j_est.residual_discrete(
+        j(x_k), j(x_prev), j(forces), j(R), j(r_feet), 12.0, j(I), j(x_drag), 0.026)
+    close(got, want, 1e-4, 1e-5)
+    got = t_est.residual_f_ext(
+        t(x_k), t(x_prev), t(forces), t(R), t(r_feet), 12.0, I, t(x_drag))
+    want = j_est.residual_f_ext(
+        j(x_k), j(x_prev), j(forces), j(R), j(r_feet), 12.0, j(I), j(x_drag))
+    close(got, want, 1e-5, 1e-6)
+
+
+def _prefilled_estimator(count, B=3, window=400, seed=6):
+    """A window filled with a clear sinusoid (0.3-0.5 Hz, amplitude 4-6,
+    offset, small noise) at the MPC cadence, so the FFT peak bin is
+    unambiguous and the ls fit actually runs at count >= window."""
+    rng = np.random.default_rng(seed)
+    dt = 0.026
+    t0 = 3.0
+    times = t0 + dt * np.arange(window)[None, :] + np.zeros((B, 1))
+    freq = rng.uniform(0.3, 0.5, (B, 1))
+    amp = rng.uniform(4.0, 6.0, (B, 1))
+    diffs = -2.0 + amp * np.sin(2 * np.pi * freq * times + 0.4) \
+        + 0.05 * rng.normal(size=(B, window))
+    hist = np.zeros((B, window, 6))
+    hist[..., 3] = diffs
+    st = j_est.init((B,), window, jnp.float32)
+    st = st._replace(
+        times=j(times), diffs=j(diffs), wrench_hist=j(hist),
+        count=jnp.full((B,), count, jnp.int32),
+        f_est_static=j(rng.normal(size=(B, 6))),
+        f_est_smoothed=j(rng.normal(size=(B, 6))),
+    )
+    sim_time = times[:, -1] + dt
+    f_ext = rng.normal(size=(B, 6))
+    return st, sim_time, f_ext
+
+
+@pytest.mark.parametrize("mode,count", [
+    ("ls", 399), ("ls", 450), ("ls", 100), ("static", 399), ("off", 399)])
+def test_estimator_update_matches(mode, count):
+    """One update on a prefilled window.  count 399 -> 400 is the first
+    fit and release; 100 keeps the fit off.  Frequencies to 1e-5 Hz (the
+    grid picks the same candidate; bin/64 ~ 1.5e-3 Hz apart), fitted
+    coefficients to 2e-3 (f32 sums over 400 samples in another order),
+    the released wrench to 5e-3 N/kg."""
+    st_j, sim_time, f_ext = _prefilled_estimator(count)
+    cfg_j = j_config.EstimatorConfig(mode=mode)
+    cfg_t = t_config.EstimatorConfig(mode=mode)
+    new_j, f_j = j_est.update(st_j, j(sim_time), j(f_ext), cfg_j)
+    st_t = convert.estimator_state(st_j, "cpu")
+    new_t, f_t = t_est.update(st_t, t(sim_time), t(f_ext), cfg_t)
+    close(f_t, f_j, 5e-3)
+    for name in ("times", "diffs", "wrench_hist", "f_est_static"):
+        close(getattr(new_t, name), getattr(new_j, name), 1e-6)
+    np.testing.assert_array_equal(new_t.count.numpy(), np.asarray(new_j.count))
+    close(new_t.est_freq, new_j.est_freq, 1e-5)
+    for name in ("est_stat", "est_sin", "est_cos", "est_amp", "f_est",
+                 "f_est_smoothed"):
+        close(getattr(new_t, name), getattr(new_j, name), 2e-3)
+    if mode == "ls" and count >= 399:
+        assert float(f_t.abs().max()) > 0.5          # the fit was released
+
+
+def test_swing_curves_and_foothold_match():
+    rng = np.random.default_rng(7)
+    B = 5
+    p0 = rng.uniform(-0.3, 0.3, (B, 4, 3))
+    pf = rng.uniform(-0.3, 0.3, (B, 4, 3))
+    ph = rng.uniform(0, 1, (B, 4))
+    st = rng.uniform(0.1, 0.3, (B, 4))
+    ev_t = t_swing.evaluate(t(p0), t(pf), 0.09, t(ph), t(st))
+    ev_j = j_swing.evaluate(j(p0), j(pf), 0.09, j(ph), j(st))
+    for a, b in zip(ev_t, ev_j):
+        close(a, b, 1e-5, 1e-6)
+    rpy = rng.uniform(-0.2, 0.2, (B, 3))
+    Rb = np.swapaxes(np.asarray(j_rot.rpy_to_rotmat(j(rpy))), -1, -2)
+    hips = np.broadcast_to(t_a1.A1.hip_locations(), (B, 4, 3))
+    kw_common = dict(abad_link_length=0.0838, interleave_gain=-0.2,
+                     bonus_swing=0.0, p_rel_max=0.3, dt_mpc=0.026)
+    arrays = dict(
+        p_body=rng.normal(size=(B, 3)), v_world=rng.normal(size=(B, 3)),
+        v_des_world=rng.normal(size=(B, 3)), v_des_robot=rng.normal(size=(B, 3)),
+        R_body=Rb, hip_location=hips, side_sign=np.array([-1.0, 1, -1, 1]),
+        yaw_turn_rate=rng.normal(size=(B, 1)),
+        stance_time=np.full(4, 0.208), swing_time_remaining=rng.uniform(0, 0.2, (B, 4)),
+        body_height_z=rng.uniform(0.2, 0.3, B),
+        interleave_y=np.array([-0.08, 0.08, 0.02, -0.02]))
+    got = t_swing.raibert_foothold(**{k: t(v) for k, v in arrays.items()}, **kw_common)
+    want = j_swing.raibert_foothold(**{k: j(v) for k, v in arrays.items()}, **kw_common)
+    close(got, want, TRIG_ATOL)
+
+
+def test_convert_round_trip():
+    """convert builds the port's state from the reference's, leaf by leaf,
+    keeping dtypes; to_numpy gives the arrays back unchanged."""
+    from quad_periodic_mpc_tpu.control import mpc as j_mpc
+    from quad_periodic_mpc_tpu.sim import srb_sim as j_sim
+
+    plant = j_sim.init_plant((3,), dtype=jnp.float32)
+    obs = j_sim.observe(plant)
+    ctrl = j_mpc.init_state((3,), obs, dtype=jnp.float32, horizon=10,
+                            formulation="stagewise")
+    ctrl_t = convert.controller_state(ctrl, "cpu")
+    assert ctrl_t.iteration.dtype == torch.int32
+    assert ctrl_t.first_swing.dtype == torch.bool
+    back = convert.to_numpy(ctrl_t)
+    for f in ctrl._fields:
+        if f == "est":
+            continue
+        np.testing.assert_array_equal(getattr(back, f), np.asarray(getattr(ctrl, f)))
+    plant_t = convert.plant_state(plant, "cpu")
+    np.testing.assert_array_equal(plant_t.x.numpy(), np.asarray(plant.x))
+    g = convert.gait_params(j_gait.preset("trotting"), "cpu")
+    assert g.offsets.dtype == torch.int32
