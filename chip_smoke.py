@@ -9,17 +9,31 @@ the JAX package.  Phases, each of which fails the run (non-zero exit, no
 result line) when it fails:
 
 1. build every hand-written kernel from ``quad_periodic_mpc_tpu_torch/csrc``
-   (one nvcc per source, all started together);
-2. hold each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and at a ragged batch and a long horizon, with the
-   tolerances stated below, and time both;
-3. drive the main path: the walking trot of bench.py (vx = 0.3, gait
-   phases spread over the batch, reference disturbance) at batch 2048,
-   h = 10, ADMM-30 in the fused stagewise kernel, as MPC periods of
+   (one nvcc per source, all started together), printing ptxas' registers
+   and spills;
+2. hold each kernel against its plain PyTorch version on the card with the
+   tolerances stated below, and time both: the stagewise solve at the
+   main path's shapes, a ragged batch and a long horizon; the torque
+   tick's model evaluation, contact kinematics, WBC and plant substeps at
+   B = 256 (the full stack's batch), 1 and 37, from seeded numpy inputs;
+3. drive the slice-1 main path: the walking trot of bench.py (vx = 0.3,
+   gait phases spread over the batch, reference disturbance) at batch
+   2048, h = 10, ADMM-30 in the fused stagewise kernel, as MPC periods of
    setup_command -> mpc_step -> swing-foot glide -> srb_sim.step, then
    through control/loop.rollout; the launch counts must show one kernel
    launch per MPC period, every force must be finite, and the KKT audit
-   of one return_qp step must meet primal 6e-3 / dual 1e-3.
+   of one return_qp step must meet primal 6e-3 / dual 1e-3;
+4. drive the slice-2 path, the composed 500 Hz torque tick
+   (control/full_stack.rollout_articulated: MPC + WBC + joint torques on
+   the articulated plant) with every kernel on, at bench.py's full-stack
+   batch 256: 45 MPC periods of a trot at vx = 0.15 from the ground
+   stance, the first 3 warm, the next 10 timed; every period must launch
+   model evaluation, WBC and substeps 13 times and the stagewise solve
+   once, the start-up observation the contact kinematics once, every
+   state must stay finite, and the robot must walk (the gates of the
+   reference's test_full_stack_trot_walks);
+5. time the single robot (B = 1): the composed tick and the controller
+   tick alone, over two-period chains (bench.py's b=1 lines).
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 object per kernel with its times and bound, and
@@ -47,6 +61,26 @@ KERNEL_CASES = ((BATCH, HORIZON), (1000, HORIZON), (256, 48))
 # against its XLA path).  y is rho-scaled (rho = 3e-4).
 TOL = {"U": 2e-3, "z": 2e-3, "y": 1e-5}
 KKT_PRIMAL, KKT_DUAL = 6e-3, 1e-3
+# torque tick: bench.py's full-stack batch, the kernel-check batches, and
+# the reference's trot-walks test (45 periods, vx = 0.15)
+FS_BATCH, FS_VX, FS_PERIODS, FS_WARM, FS_TIMED = 256, 0.15, 45, 3, 10
+TICK_CASES = (FS_BATCH, 1, 37)
+B1_CHAINS, B1_PERIODS = 10, 2
+# kernel vs plain version, the tolerances of the reference's kernel tests
+# (tests/test_kinematics_kernel.py, test_wbc_kernel.py, test_plant_kernel.py):
+# f32 sums in another order; the WBC's damped pseudo-inverses and the
+# plant's stiff contact amplify them.  The WBC's tau and fr are held
+# tighter than the reference's 1e-1, to 5e-5: f32 roundoff on forces of up
+# to ~60 N is ~4e-6, and one PDIP iteration fewer moves them by more than
+# 5e-5 (testing/kernel_cases.WBC_TOL says why q_des and qd_des stay loose)
+TICK_TOL = {
+    "model": {"A": 1e-4, "G": 1e-3, "C": 2e-3, "Jc": 2e-5, "p_foot": 2e-5,
+              "Jcdqd": 5e-4, "AinvA-I": 5e-3},
+    "contact": {"Jc": 2e-5, "p_foot": 2e-5, "Jcdqd": 5e-4},
+    "wbc": {"q_des": 1.5e-3, "qd_des": 1e-2, "tau": 5e-5, "fr": 5e-5},
+    "plant": {"pos": 1e-5, "quat": 1e-6, "v_body": 5e-4, "q": 1e-5, "qd": 2e-3,
+              "p_foot": 1e-5, "anchor": 1e-5},
+}
 # H100 SXM: HBM3 rate and float32 (non-tensor-core) peak, NVIDIA data sheet
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
@@ -100,6 +134,129 @@ def solve_bytes(B: int, h: int) -> int:
     return 4 * (B * (per_instance + outputs) + shared)
 
 
+# Operation counts of the torque-tick kernels' building blocks (multiply and
+# add each count one; csrc/kinematics.cu, wbc.cu, plant.cu)
+MM3, MV3, CROSS3 = 45, 15, 9
+XAPPLY = 2 * MV3 + CROSS3 + 3             # X(R, r) v
+XT_FORCE = 2 * MV3 + CROSS3 + 3           # X(R, r)^T f
+FORCE_CROSS = 3 * CROSS3 + 3
+MV6 = 6 * 11
+
+
+def gemm_flops(r: int, k: int, s: int) -> int:
+    return r * s * (2 * k - 1)
+
+
+# warp_linalg.cuh inv3 (the damped 3x3 closed form); wbc.cu cone_apply and
+# cone_apply_T (the four legs' 6x3 friction blocks) and max_step (24 rows)
+INV3 = 3 + 6 * 3 + 5 + 1 + 9
+CONE_APPLY, CONE_APPLY_T = 4 * 11, 4 * 14
+MAX_STEP = 24 * 2 + 2
+
+
+def spd_inv_flops(n: int) -> int:
+    """The recursive Schur inverse (warp_linalg.cuh SpdInv)."""
+    if n <= 3:
+        return {1: 1, 2: 8, 3: INV3}[n]
+    h, r = (n + 1) // 2, n - (n + 1) // 2
+    return (spd_inv_flops(h) + gemm_flops(h, h, r) + gemm_flops(r, h, r) + r * r
+            + spd_inv_flops(r) + gemm_flops(h, r, r) + gemm_flops(h, r, h) + h * h)
+
+
+def contact_kinematics_flops(rotors: bool) -> int:
+    """Per instance: the tree walk, bias accelerations, four foot walks."""
+    joint = 15 + 2 + 2 * MM3 + MV3 + 3 + XAPPLY + 1 + 2 * CROSS3
+    rotor = 15 + 2 + MM3 + 2 + XAPPLY + 1 + 2 * CROSS3
+    bias = XAPPLY + 6
+    # per leg: two X v, the cross, Wl, three joints of (3 products + sub), p
+    leg = 2 * XAPPLY + CROSS3 + 3 + MM3 + 9 + 3 * (3 * MM3 + 9) + MV3 + 3
+    return 30 + 12 * (joint + bias + (rotor + bias if rotors else 0)) + 4 * leg
+
+
+def model_eval_flops() -> int:
+    """Per instance: contact_kinematics_flops(rotors) + CRBA, H, the 18x18
+    inverse, gravity and Coriolis."""
+    crba = 12 * (2 * 9 * 5 + 2 * gemm_flops(6, 6, 6) + 36 * (2 * 11 + 2))
+    h_asm = 12 * (6 + 2 + 2 * XT_FORCE + 6) + 12 * XT_FORCE
+    grav = XAPPLY + MV6 + 12 * (2 * XAPPLY + 2 * MV6 + 3)
+    cori = 2 * MV6 + FORCE_CROSS + 6 + 12 * (4 * MV6 + 2 * FORCE_CROSS + 12) + 12 * (
+        2 * XT_FORCE + 14)
+    return (contact_kinematics_flops(True) + crba + h_asm + spd_inv_flops(18) + grav
+            + cori)
+
+
+def pdip_lane0_flops() -> int:
+    """The serial vector work of one PDIP iteration (wbc.cu's two lane-0
+    sections), loop by loop.  max_step's ratio is counted on every row and
+    the update on every iteration: an upper count where a row's step does
+    not shrink or an instance freezes."""
+    NJ, NCON = 12, 24
+    floors = 4 * NCON                                   # fmaxf on sl, su, zl, zu
+    rdual = CONE_APPLY + NCON + CONE_APPLY_T + NJ * (2 * NJ - 1 + 2)
+    mu_t = 2 * (2 * NCON - 1) + 2 + 2                   # the two sums, mu_c, mu_t
+    rows = NCON * (2 + 2 + 2 + 2 + 3)                   # r_pl, r_pu, r_cl, r_cu, d
+    rhs = 2 * (3 * NCON + CONE_APPLY_T) + 2 * NJ
+    kkt = 4 * (4 * 3 + 11 + 7) + NJ                     # the legs' blocks, reg
+    step = CONE_APPLY + NCON * (1 + 1 + 3 + 3) + 4 * MAX_STEP + 3
+    update = 2 * NJ + 4 * 2 * NCON
+    return floors + rdual + mu_t + rows + rhs + kkt + step + update
+
+
+def wbc_flops(iters: int) -> int:
+    """Per instance, from wbc.cu's loops: the masking, KinWBC, the WBIC
+    cascade, the QP set-up, `iters` PDIP iterations and the torques."""
+    ND, NJ, NCON = 18, 12, 24
+    task_J = lambda i: gemm_flops(3, 3 if i < 2 else ND, ND)
+    task_v = lambda i: gemm_flops(3, 3 if i < 2 else ND, 1)
+    proj = gemm_flops(ND, ND, 3) + gemm_flops(ND, 3, ND) + ND * ND
+    mask = 3 * NJ * ND + NJ
+    kin = (gemm_flops(NJ, ND, NJ) + NJ + spd_inv_flops(NJ)
+           + gemm_flops(ND, NJ, NJ) + gemm_flops(ND, NJ, ND) + ND)
+    for i in range(6):
+        kin += task_J(i) + gemm_flops(3, ND, 3) + INV3 + gemm_flops(ND, 3, 3)
+        kin += 2 * gemm_flops(ND, 3, 1) + (0 if i == 0 else 2 * task_v(i) + 6 + 2 * ND)
+        kin += proj if i < 5 else 0
+    kin += NJ                                                    # des_jpos
+    wbic = (gemm_flops(ND, ND, NJ) + gemm_flops(NJ, ND, NJ) + NJ + spd_inv_flops(NJ)
+            + gemm_flops(ND, NJ, NJ) + gemm_flops(ND, NJ, 1) + gemm_flops(ND, NJ, ND) + ND)
+    for i in range(6):
+        wbic += (task_J(i) + gemm_flops(ND, ND, 3) + gemm_flops(3, ND, 3) + INV3
+                 + gemm_flops(ND, 3, 3) + task_v(i) + 6 + gemm_flops(ND, 3, 1) + ND)
+        wbic += proj if i < 5 else 0
+    resid = 6 * ((2 * ND - 1) + (2 * NJ - 1) + 2)
+    bounds = CONE_APPLY + 4 + 2 * NCON                           # l, u - l
+    qp_setup = (resid + spd_inv_flops(6) + gemm_flops(6, 6, 1) + gemm_flops(6, 6, NJ)
+                + NJ * NJ * (2 * 6 - 1 + 2) + NJ * (2 * 6 - 1 + 1) + bounds)
+    pdip_iter = (pdip_lane0_flops() + spd_inv_flops(NJ) + 3 * gemm_flops(NJ, NJ, 1)
+                 + 2 * NJ)
+    finish = NJ + 6 * (2 * NJ - 1 + 2) + NJ * ((2 * ND - 1) + (2 * NJ - 1) + 2)
+    return mask + kin + wbic + qp_setup + iters * pdip_iter + finish
+
+
+def substep_flops(substeps: int) -> int:
+    """Per instance: Jc qdot, four feet of penalty contact, Jc^T f,
+    A^{-1} rhs and the integration, per substep."""
+    per = (gemm_flops(12, 18, 1) + 4 * 30 + gemm_flops(18, 12, 1) + 30
+           + gemm_flops(18, 18, 1) + 60 + 30 + 21 + 60 + 24)
+    return substeps * per
+
+
+# floats per instance (inputs, outputs) and shared, each read or written once
+TICK_FLOATS = {
+    "model": (37, 324 + 324 + 18 + 18 + 216 + 12 + 12, 4 * 432 + 36 + 12),
+    "contact": (37, 216 + 12 + 12, 432 + 12),
+    "wbc": (324 + 324 + 18 + 216 + 12 + 4 + 9 + 4 * 18 + 12 + 12, 4 * 12, 0),
+    "plant": (4 + 3 + 6 + 12 + 12 + 8 + 12 + 324 + 18 + 18 + 216 + 12,
+              4 + 3 + 6 + 12 + 12 + 8 + 12 + 4, 0),
+}
+
+
+def bound(flops: int, nbytes: int) -> tuple[float, str]:
+    t_ops = 1e3 * flops / FP32_FLOPS_PER_S
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -120,46 +277,9 @@ def build_kernels():
           f"{time.perf_counter() - t0:.1f} s")
 
 
-def kernel_inputs(B: int, h: int, seed: int, device):
-    """Well-posed fused-solve inputs from numpy (the recipe of the JAX
-    package's test_fused_srb_build_matches_xla_build), via the port's own
-    problem build."""
-    import numpy as np
-    import torch
-
-    from quad_periodic_mpc_tpu_torch.config import ADMMConfig, MPCConfig
-    from quad_periodic_mpc_tpu_torch.ops import gait, problem
-    from quad_periodic_mpc_tpu_torch.ops.rotations import quat_to_rotmat, rpy_to_quat
-
-    rng = np.random.default_rng(seed)
-    cfg = MPCConfig(horizon=h)
-    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
-    hips = np.array([[0.18, -0.13, -0.27], [0.18, 0.13, -0.27],
-                     [-0.18, -0.13, -0.27], [-0.18, 0.13, -0.27]])
-    quat = rpy_to_quat(t(rng.uniform(-0.15, 0.15, (B, 3))))
-    obs = problem.RobotObs(
-        p=t(np.tile([0.0, 0.0, 0.27], (B, 1))),
-        v=t(rng.uniform(-0.3, 0.3, (B, 3))), quat=quat,
-        omega=t(rng.uniform(-0.2, 0.2, (B, 3))),
-        r_feet=t(hips + rng.uniform(-0.03, 0.03, (B, 4, 3))))
-    xref = np.zeros((B, h, 13), np.float32)
-    xref[..., 5] = 0.27
-    g = gait.preset("trotting", device=device)
-    seg = torch.as_tensor(rng.integers(0, 16, B), dtype=torch.int32, device=device)
-    table = gait.mpc_table(g, seg, h)
-    f_est, x_drag = t(rng.uniform(-3, 3, (B, 6))), t(rng.uniform(-0.5, 0.5, B))
-    sw, x0 = problem.build_stagewise(obs, t(xref), table, cfg, f_est=f_est,
-                                     x_drag=x_drag)
-    rho = ADMMConfig().rho
-    R_eff = torch.diag(sw.R) + rho * torch.kron(
-        torch.eye(4, device=device), sw.F.T @ sw.F)
-    z = lambda r: torch.zeros(B, h, r, device=device)
-    args = [quat_to_rotmat(quat), obs.r_feet, x_drag, f_est, x0, sw.x_ref,
-            sw.Q, R_eff, sw.F, sw.l, sw.u, z(12), z(20), z(20)]
-    return [a.contiguous() for a in args], rho
-
-
 def time_ms(fn, reps: int) -> float:
+    """ms per call between CUDA events around `reps` calls: the device's
+    time when it, not the host's issue of the calls, is the limit."""
     import torch
 
     fn()
@@ -173,16 +293,40 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def kernel_ms(fn, reps: int, symbol: str) -> tuple[float, float]:
+    """(device ms per launch of the kernel named `symbol`, from the
+    profiler's device time over `reps` calls; ms per call from CUDA
+    events).  A kernel shorter than its wrapper's host-side cost leaves
+    the device idle between calls, which the events count and the device
+    time does not.  Fails the run where the profiler records no device
+    time for `symbol` (a renamed kernel, or a profiler that sees no
+    device), rather than report the events' time as the kernel's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    per_call = time_ms(fn, reps)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and symbol in e.key]
+    launches = sum(e.count for e in rows)
+    check(launches == reps, f"the profiler saw {launches} device launches of "
+          f"{symbol!r} in {reps} calls")
+    return sum(e.self_device_time_total for e in rows) / 1e3 / launches, per_call
+
+
 def compare_kernels(device, card: str) -> dict:
     import torch
 
-    from quad_periodic_mpc_tpu_torch.ops import qp_stagewise
     from quad_periodic_mpc_tpu_torch.ops.cuda import stagewise_kernel as SK
+    from quad_periodic_mpc_tpu_torch.testing import kernel_cases
 
     record = None
     for i, (B, h) in enumerate(KERNEL_CASES):
-        args, rho = kernel_inputs(B, h, seed=100 + i, device=device)
-        kw = dict(iters=ADMM_ITERS, rho=rho, ns_it=qp_stagewise.ns_combine_iters(h))
+        args, kw = kernel_cases.stagewise_case(B, h, seed=100 + i, device=device,
+                                               iters=ADMM_ITERS)
         got = SK.fused_stagewise_solve_srb(*args, **kw)
         torch.cuda.synchronize()
         stats = {}
@@ -198,27 +342,144 @@ def compare_kernels(device, card: str) -> dict:
             check(errs[n] <= TOL[n], f"kernel disagrees with plain version: "
                   f"max|d{n}|={errs[n]} > {TOL[n]} at B={B} h={h}")
         if (B, h) == (BATCH, HORIZON):
-            ms = time_ms(lambda: SK.fused_stagewise_solve_srb(*args, **kw), 20)
+            ms, call_ms = kernel_ms(lambda: SK.fused_stagewise_solve_srb(*args, **kw), 20,
+                                    "stagewise_srb_kernel")
             plain_ms = time_ms(
                 lambda: SK.fused_stagewise_solve_srb_reference(*args, **kw), 2)
             flops = solve_flops(B, h, ADMM_ITERS, kw["ns_it"],
                                 SK.ns_warm_rounds(kw["ns_it"]), stats["rescued"])
             nbytes = solve_bytes(B, h)
-            t_ops = 1e3 * flops / FP32_FLOPS_PER_S
-            t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+            bound_ms, bound_by = bound(flops, nbytes)
             record = {
                 "name": "fused_stagewise_solve_srb", "route": "cuda",
                 "source": "quad_periodic_mpc_tpu_torch/csrc/stagewise_srb.cu",
                 "replaces": "quad_periodic_mpc_tpu/ops/pallas/stagewise_kernel.py:753",
                 "launches": 0, "max_abs_err": max(errs.values()),
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                "library_ms": None,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None,
             }
-            print(f"[kernel] B={B} h={h}: kernel {ms:.3f} ms, plain version "
+            print(f"[kernel] B={B} h={h}: kernel {ms:.3f} ms on the device "
+                  f"({call_ms:.3f} ms per call), plain version "
                   f"{plain_ms:.1f} ms, bound {record['bound_ms']:.4f} ms "
                   f"({flops:.3e} flop, {nbytes} B) on {card}")
     return record
+
+
+def _maxdiff(a, b) -> float:
+    return float((a - b).abs().max())
+
+
+def compare_tick_kernels(device, card: str) -> dict:
+    """Kernels 2-5 of the torque tick against their plain versions at
+    TICK_CASES, from seeded numpy inputs; timed at the full stack's batch.
+    Returns {name: record}."""
+    import torch
+
+    from quad_periodic_mpc_tpu_torch.control.wbc import WBCGains
+    from quad_periodic_mpc_tpu_torch.models import floating_base as fb
+    from quad_periodic_mpc_tpu_torch.ops.cuda import kinematics_kernel as KK
+    from quad_periodic_mpc_tpu_torch.ops.cuda import plant_kernel as PK
+    from quad_periodic_mpc_tpu_torch.ops.cuda import wbc_kernel as WK
+    from quad_periodic_mpc_tpu_torch.sim.articulated_sim import ContactParams
+    from quad_periodic_mpc_tpu_torch.testing import kernel_cases as KC
+
+    mc = fb.build_a1_constants("float32", str(device))
+    gains, params, sub_dt, substeps = WBCGains(), ContactParams(), 2e-4, 10
+    eye = torch.eye(18, device=device)
+
+    def model(B):
+        st = KC.model_states(B, seed=4, device=device)
+        A, Ainv, G, C, info = KK.fused_model_eval(st, mc)
+        A_r, _, G_r, C_r, info_r = KK.model_eval_reference(st, mc)
+        errs = {"A": _maxdiff(A, A_r), "G": _maxdiff(G, G_r), "C": _maxdiff(C, C_r),
+                "Jc": _maxdiff(info.Jc, info_r.Jc), "p_foot": _maxdiff(info.p_foot, info_r.p_foot),
+                "Jcdqd": _maxdiff(info.Jcdqd, info_r.Jcdqd), "AinvA-I": _maxdiff(Ainv @ A, eye)}
+        return errs, (A, Ainv, G, C, *info), (lambda: KK.fused_model_eval(st, mc),
+                                              lambda: KK.model_eval_reference(st, mc))
+
+    def contact(B):
+        st = KC.model_states(B, seed=2, device=device)
+        got, want = KK.fused_contact_kinematics(st, mc), fb.contact_jacobians(st, mc)
+        errs = {f: _maxdiff(getattr(got, f), getattr(want, f)) for f in ("Jc", "p_foot", "Jcdqd")}
+        return errs, tuple(got), (lambda: KK.fused_contact_kinematics(st, mc),
+                                  lambda: fb.contact_jacobians(st, mc))
+
+    def wbc(B):
+        args = KC.wbc_kernel_args(*KC.wbc_state_and_input(B, device=device))
+        got = WK.fused_wbc(*args, gains, KC.WBC_PDIP)
+        want = WK.fused_wbc_reference(*args, gains, KC.WBC_PDIP)
+        errs = {n: _maxdiff(g, w) for n, g, w in zip(("q_des", "qd_des", "tau", "fr"), got, want)}
+        # where qd_des disagrees most, and the plain version's own float32
+        # error there (against itself in float64): the gap's cause
+        want64 = WK.fused_wbc_reference(*(a.double() for a in args), gains, KC.WBC_PDIP)
+        i = int((got[1] - want[1]).abs().amax(-1).argmax())
+        own = float((want[1][i] - want64[1][i]).abs().max())
+        print(f"[kernel] fused_wbc B={B}: max|dqd_des| at instance {i}, stance "
+              f"{[int(c) for c in args[5][i].tolist()]}; there the plain version's "
+              f"float32 qd_des is {own:.3g} from its float64 one")
+        return errs, got, (lambda: WK.fused_wbc(*args, gains, KC.WBC_PDIP),
+                           lambda: WK.fused_wbc_reference(*args, gains, KC.WBC_PDIP))
+
+    def plant(B):
+        case = KC.plant_case(B, device=device)
+        p0, tau, cache, Jc, pf = case
+        run = lambda fn: fn(p0, tau, sub_dt, params, cache, Jc, pf, substeps)
+        (pb, pf_b), (pa, pf_a) = run(PK.fused_substeps), run(PK.fused_substeps_reference)
+        errs = {f: _maxdiff(getattr(pb.fb, f), getattr(pa.fb, f))
+                for f in ("pos", "quat", "v_body", "q", "qd")}
+        errs["p_foot"] = _maxdiff(pf_b, pf_a)
+        errs["anchor"] = _maxdiff(pb.anchor, pa.anchor)
+        check(torch.equal(pb.in_contact, pa.in_contact), "plant kernel: contact flags differ")
+        return errs, (*pb.fb, pb.anchor, pf_b), (lambda: run(PK.fused_substeps),
+                                                 lambda: run(PK.fused_substeps_reference))
+
+    specs = {   # record name, source, kernel symbol, TPU kernel, case, flop/instance
+        "model": ("fused_model_eval", "kinematics.cu", "model_eval_kernel",
+                  "quad_periodic_mpc_tpu/ops/pallas/kinematics_kernel.py:727", model,
+                  model_eval_flops()),
+        "wbc": ("fused_wbc", "wbc.cu", "wbc_kernel",
+                "quad_periodic_mpc_tpu/ops/pallas/wbc_kernel.py:493",
+                wbc, wbc_flops(KC.WBC_PDIP.iterations)),
+        "plant": ("fused_substeps", "plant.cu", "plant_kernel",
+                  "quad_periodic_mpc_tpu/ops/pallas/plant_kernel.py:224", plant,
+                  substep_flops(substeps)),
+        "contact": ("fused_contact_kinematics", "kinematics.cu", "contact_kinematics_kernel",
+                    "quad_periodic_mpc_tpu/ops/pallas/kinematics_kernel.py:286", contact,
+                    contact_kinematics_flops(False)),
+    }
+    records = {}
+    for key, (name, src, symbol, replaces, case, flops_per) in specs.items():
+        worst = 0.0
+        for B in TICK_CASES:
+            errs, outs, (kernel_fn, plain_fn) = case(B)
+            torch.cuda.synchronize()
+            tol = TICK_TOL[key]
+            print(f"[kernel] {name} B={B}: " + ", ".join(
+                f"max|d{n}|={e:.3g} (tol {tol[n]})" for n, e in errs.items()))
+            check(all(bool(torch.isfinite(o).all()) for o in outs),
+                  f"{name} output not finite at B={B}")
+            for n, e in errs.items():
+                check(e <= tol[n], f"{name} disagrees with its plain version: "
+                      f"max|d{n}|={e} > {tol[n]} at B={B}")
+            worst = max(worst, *errs.values())
+            if B == FS_BATCH:
+                ms, call_ms = kernel_ms(kernel_fn, 20, symbol)
+                plain_ms = time_ms(plain_fn, 3)
+        per_in, per_out, shared = TICK_FLOATS[key]
+        nbytes = 4 * (FS_BATCH * (per_in + per_out) + shared)
+        flops = FS_BATCH * flops_per
+        bound_ms, bound_by = bound(flops, nbytes)
+        records[name] = {
+            "name": name, "route": "cuda", "source": f"quad_periodic_mpc_tpu_torch/csrc/{src}",
+            "replaces": replaces, "launches": 0, "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,
+        }
+        print(f"[kernel] {name} B={FS_BATCH}: kernel {ms:.4f} ms on the device "
+              f"({call_ms:.4f} ms per call), plain version "
+              f"{plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by}; {flops:.3e} flop, "
+              f"{nbytes} B) on {card}")
+    return records
 
 
 def trot_inputs(device):
@@ -373,6 +634,148 @@ def main_path(device, card: str) -> int:
     return launches
 
 
+def full_stack_setup(device, B: int):
+    """bench.py's full-stack configuration at batch B, every kernel on:
+    returns (mc, gait, kw for rollout_articulated / controller_tick, and the
+    start: plant on the ground, its kernel observation, controller,
+    command).  The controller skips the condensed K^-1 carry."""
+    import torch
+
+    from quad_periodic_mpc_tpu_torch.config import ADMMConfig, MPCConfig
+    from quad_periodic_mpc_tpu_torch.control import full_stack as FS
+    from quad_periodic_mpc_tpu_torch.control import mpc as M
+    from quad_periodic_mpc_tpu_torch.models import floating_base as fb
+    from quad_periodic_mpc_tpu_torch.ops import gait as G
+    from quad_periodic_mpc_tpu_torch.sim import articulated_sim as art
+
+    mc = fb.build_a1_constants("float32", str(device))
+    P = fb.A1ModelParams()
+    m_tot = P.body_mass + 4 * (P.abad_mass + P.hip_mass + P.knee_mass + 3 * P.rotor_mass)
+    kw = dict(
+        mpc_cfg=MPCConfig(horizon=HORIZON, mass=float(m_tot), inertia_body=(0.12, 0.45, 0.42)),
+        solver=ADMMConfig(iterations=ADMM_ITERS, formulation="stagewise", backend="pallas"),
+        wbc_backend="pallas", kin_backend="pallas")
+    plant = art.init_on_ground((B,), penetration=3.8e-3, device=device)
+    obs0, _, _ = FS.observe_plant(plant, mc, kin_backend="pallas")
+    ctrl = M.init_state((B,), obs0, formulation="stagewise")
+    f32 = dict(dtype=torch.float32, device=device)
+    cmd = M.Command(vx=torch.full((B,), FS_VX, **f32), vy=torch.zeros(B, **f32),
+                    yaw_rate=torch.zeros(B, **f32), body_height=plant.fb.pos[..., 2].clone())
+    return mc, G.preset("trotting", device=device), kw, plant, ctrl, cmd
+
+
+def full_stack_path(device, card: str) -> dict:
+    """The composed torque tick with every kernel on, at FS_BATCH: launch
+    counts per period, finiteness, the trot-walks gates, period times and a
+    profile.  Returns the launch counts of the run."""
+    import torch
+
+    from quad_periodic_mpc_tpu_torch.control import full_stack as FS
+    from quad_periodic_mpc_tpu_torch.ops.cuda import kinematics_kernel as KK
+    from quad_periodic_mpc_tpu_torch.ops.cuda import plant_kernel as PK
+    from quad_periodic_mpc_tpu_torch.ops.cuda import stagewise_kernel as SK
+    from quad_periodic_mpc_tpu_torch.ops.cuda import wbc_kernel as WK
+
+    def counts():
+        return (KK.LAUNCHES["fused_model_eval"], WK.LAUNCHES, PK.LAUNCHES, SK.LAUNCHES,
+                KK.LAUNCHES["fused_contact_kinematics"])
+
+    for k in KK.LAUNCHES:
+        KK.LAUNCHES[k] = 0
+    WK.LAUNCHES = PK.LAUNCHES = SK.LAUNCHES = 0
+    mc, gait, kw, plant, ctrl, cmd = full_stack_setup(device, FS_BATCH)
+
+    def periods(plant, ctrl, n):
+        carry, trace = FS.rollout_articulated(n, plant, ctrl, cmd, gait, mc, substeps=10,
+                                              **kw)
+        return carry.plant, carry.ctrl, trace
+
+    z0 = float(plant.fb.pos[0, 2])
+    torch.cuda.synchronize()
+    traces, times, all_finite = [], [], True
+    for i in range(FS_PERIODS):
+        before = counts()
+        t0 = time.perf_counter()
+        plant, ctrl, trace = periods(plant, ctrl, 1)
+        torch.cuda.synchronize()
+        if FS_WARM <= i < FS_WARM + FS_TIMED:
+            times.append(1e3 * (time.perf_counter() - t0))
+        per = tuple(a - b for a, b in zip(counts(), before))
+        check(per == (13, 13, 13, 1, 0), f"full-stack period {i}: launches (model_eval, "
+              f"wbc, substeps, stagewise, contact) = {per}, expected (13, 13, 13, 1, 0)")
+        traces.append(trace)
+        all_finite &= all(bool(torch.isfinite(t).all()) for t in (*plant.fb, ctrl.fr_des))
+    launches = dict(zip(("fused_model_eval", "fused_wbc", "fused_substeps",
+                         "fused_stagewise_solve_srb", "fused_contact_kinematics"), counts()))
+    check(launches["fused_contact_kinematics"] == 1,
+          f"contact kinematics launched {launches['fused_contact_kinematics']} times, expected 1")
+    check(all_finite, "non-finite state on the full-stack path")
+    med = statistics.median(times)
+    print(f"[full stack] B={FS_BATCH} trot vx={FS_VX}, ADMM-{ADMM_ITERS} h={HORIZON}, "
+          f"WBC PDIP-15, 10 substeps: {FS_TIMED} timed periods, median {med:.2f} ms/period "
+          f"(min {min(times):.2f}, max {max(times):.2f}), {FS_BATCH / med * 1e3:.1f} "
+          f"periods/s, {med / 13:.3f} ms per batched tick; launches {launches} on {card}")
+
+    pos = torch.cat([t["pos"] for t in traces]).cpu()          # (periods, B, 3)
+    vb = torch.cat([t["v_body"] for t in traces]).cpu()
+    dist = float(pos[-1, :, 0].min())
+    dz = float((pos[10:, :, 2] - z0).abs().max())
+    qw = float(plant.fb.quat[:, 0].abs().min())
+    vx = vb[15:, :, 3].mean(0)
+    print(f"[full stack] trot walks ({FS_PERIODS} periods): forward {dist:.4f} m (> 0.10), "
+          f"max|z - z0| after period 10 {dz:.4f} (< 0.04), min|quat_w| {qw:.5f} (> 0.99), "
+          f"mean v_x after period 15 in [{float(vx.min()):.4f}, {float(vx.max()):.4f}] "
+          f"(0.05, 0.3)")
+    check(dist > 0.10, f"the robot did not walk forward: {dist} m")
+    check(dz < 0.04, f"body height left the band: {dz}")
+    check(qw > 0.99, f"attitude tumbled: |quat_w| = {qw}")
+    check(bool(((vx > 0.05) & (vx < 0.3)).all()), "mean forward speed out of (0.05, 0.3)")
+
+    profile_periods(lambda c, p: periods(p, c, 1)[1::-1], ctrl, plant)
+    return launches
+
+
+def single_robot(device, card: str) -> None:
+    """B = 1: ms per control tick of the composed tick (controller + 10
+    plant substeps) and of the controller tick alone (plant held), over
+    two-period chains (bench.py's b=1 lines).  Numbers for PERF.md."""
+    import torch
+
+    from quad_periodic_mpc_tpu_torch.control import full_stack as FS
+
+    mc, gait, kw, plant, ctrl, cmd = full_stack_setup(device, 1)
+    ticks = 13 * B1_PERIODS
+
+    def chain(plant, ctrl):
+        carry, _ = FS.rollout_articulated(B1_PERIODS, plant, ctrl, cmd, gait, mc,
+                                          substeps=10, **kw)
+        return carry.plant, carry.ctrl
+
+    def controller_chain(ctrl):
+        for _ in range(B1_PERIODS):
+            for k in range(13):
+                ctrl, _, _ = FS.controller_tick(plant, ctrl, cmd, gait, mc, k == 0, **kw)
+        return (ctrl,)
+
+    def per_tick(fn, *state):
+        out = []
+        for i in range(2 + B1_CHAINS):
+            t0 = time.perf_counter()
+            state = fn(*state)
+            torch.cuda.synchronize()
+            if i >= 2:
+                out.append(1e3 * (time.perf_counter() - t0) / ticks)
+        return out, state
+
+    tick, (plant_end, _) = per_tick(chain, plant, ctrl)
+    check(bool(torch.isfinite(plant_end.fb.pos).all()), "non-finite B=1 plant")
+    ctl, _ = per_tick(controller_chain, ctrl)
+    print(f"[single robot] B=1: composed tick median {statistics.median(tick):.3f} ms "
+          f"(min {min(tick):.3f}, max {max(tick):.3f}); controller tick alone median "
+          f"{statistics.median(ctl):.3f} ms (min {min(ctl):.3f}, max {max(ctl):.3f}); "
+          f"{B1_CHAINS} chains of {ticks} ticks on {card}")
+
+
 def main() -> int:
     import torch
 
@@ -395,14 +798,19 @@ def main() -> int:
     try:
         build_kernels()
         record = compare_kernels(device, card)
+        tick_records = compare_tick_kernels(device, card)
         record["launches"] = main_path(device, card)
+        for name, n in full_stack_path(device, card).items():
+            if name in tick_records:
+                tick_records[name]["launches"] = n
+        single_robot(device, card)
         if "jax" in sys.modules or "quad_periodic_mpc_tpu" in sys.modules:
             raise SmokeFailure("JAX or the JAX package was imported")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     print(card)
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": [record, *tick_records.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

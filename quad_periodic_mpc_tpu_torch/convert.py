@@ -3,10 +3,12 @@
 This system has no learned weights: what carries over between the JAX
 package and this port is its state and configuration.  Each function here
 takes one of the reference's state types (``ControllerState``,
-``EstimatorState``, ``PlantState``, ``Command``,
-``DisturbanceParams``, ``GaitParams``) with array leaves of any kind that
-``numpy.asarray`` accepts, and builds the port's NamedTuple of tensors on
-the given device, keeping each leaf's dtype.  Nothing here imports JAX.
+``EstimatorState``, ``PlantState``, ``Command``, ``DisturbanceParams``,
+``GaitParams``, ``FBState``, ``ArtState``, ``ContactInfo``, ``WBCInput``,
+``ModelConstants``) with array leaves of any kind that ``numpy.asarray``
+accepts, and builds the port's NamedTuple of tensors on the given device,
+keeping each leaf's dtype (the tuple fields of ``ModelConstants`` stay
+Python values).  Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -14,9 +16,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from quad_periodic_mpc_tpu_torch.control import mpc
+from quad_periodic_mpc_tpu_torch.control import mpc, wbc
+from quad_periodic_mpc_tpu_torch.models import floating_base
 from quad_periodic_mpc_tpu_torch.ops import estimator, gait
-from quad_periodic_mpc_tpu_torch.sim import srb_sim
+from quad_periodic_mpc_tpu_torch.sim import articulated_sim, srb_sim
 
 
 def tensor(a, device="cuda") -> torch.Tensor:
@@ -55,6 +58,32 @@ def disturbance(src, device="cuda") -> srb_sim.DisturbanceParams:
 
 def gait_params(src, device="cuda") -> gait.GaitParams:
     return _named(gait.GaitParams, src, device)
+
+
+def fb_state(src, device="cuda") -> floating_base.FBState:
+    return _named(floating_base.FBState, src, device)
+
+
+def art_state(src, device="cuda") -> articulated_sim.ArtState:
+    return _named(articulated_sim.ArtState, src, device, {"fb": fb_state})
+
+
+def contact_info(src, device="cuda") -> floating_base.ContactInfo:
+    return _named(floating_base.ContactInfo, src, device)
+
+
+def wbc_input(src, device="cuda") -> wbc.WBCInput:
+    return _named(wbc.WBCInput, src, device)
+
+
+def model_constants(src, device="cuda") -> floating_base.ModelConstants:
+    """The reference's ModelConstants: arrays become tensors on ``device``,
+    the tuple fields (topology, static mirrors) are copied as they are."""
+    return floating_base.ModelConstants(**{
+        f: (tuple(getattr(src, f)) if isinstance(getattr(src, f), tuple)
+            else tensor(getattr(src, f), device))
+        for f in floating_base.ModelConstants._fields
+    })
 
 
 def to_numpy(value):

@@ -44,3 +44,18 @@ def bounds(
     big = torch.full_like(fz_ub, big_number)
     u = torch.stack([big, big, big, big, fz_ub], dim=-1)
     return torch.zeros_like(u), u
+
+
+def apply(F: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """blockdiag(F) @ x via the block structure: F (c, a) (the 5x3 MPC
+    pyramid or the 6x3 WBIC cone), x (..., k*a) -> (..., k*c)."""
+    c, a = F.shape[-2], F.shape[-1]
+    feet = x.reshape(x.shape[:-1] + (x.shape[-1] // a, a))
+    return (feet @ F.transpose(-1, -2)).reshape(x.shape[:-1] + (-1,))
+
+
+def apply_T(F: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """blockdiag(F)^T @ y: (..., k*c) -> (..., k*a)."""
+    c, a = F.shape[-2], F.shape[-1]
+    rows = y.reshape(y.shape[:-1] + (y.shape[-1] // c, c))
+    return (rows @ F).reshape(y.shape[:-1] + (-1,))

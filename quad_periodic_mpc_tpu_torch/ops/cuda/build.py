@@ -40,8 +40,12 @@ def _nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
+    """The library's name hashes the source, the shared headers and the
+    flags, so an edit to any of them rebuilds it."""
     src = CSRC / source
     digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     return BUILD_DIR / f"lib{src.stem}_{digest.hexdigest()[:12]}.so"
 
 
@@ -76,3 +80,33 @@ def load(source: str) -> ctypes.CDLL:
         if source not in _libs:
             _libs[source] = ctypes.CDLL(str(build(source)))
         return _libs[source]
+
+
+def check(name: str, t, shape: tuple, device) -> None:
+    """Raise unless ``t`` is a contiguous float32 tensor of ``shape`` on
+    ``device`` (what every kernel's C interface takes)."""
+    import torch
+
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: expected float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def launch(source: str, fn_name: str, tensors, params, device) -> None:
+    """Call ``fn_name(ptr..., params, stream)`` of ``csrc/<source>`` on the
+    current stream of ``device``; raise on a non-zero cudaError_t.
+    ``params`` is a ctypes.Structure passed by value."""
+    import torch
+
+    fn = getattr(load(source), fn_name)
+    fn.argtypes = [ctypes.c_void_p] * len(tensors) + [type(params), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(*(t.data_ptr() for t in tensors), params,
+             torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn_name} ({source}) failed: cudaError_t {err}")

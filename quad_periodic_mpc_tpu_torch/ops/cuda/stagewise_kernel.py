@@ -30,6 +30,7 @@ import ctypes
 
 import torch
 
+from quad_periodic_mpc_tpu_torch.ops.cuda import build
 from quad_periodic_mpc_tpu_torch.ops.rotations import skew
 
 NX = 13
@@ -256,15 +257,23 @@ def fused_stagewise_solve_srb_reference(
     return U, z, y
 
 
-def _check(name: str, t: torch.Tensor, shape: tuple, device) -> None:
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: expected float32, got {t.dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
+def _check_inputs(R, r_feet, x_drag, f_est, x0, x_ref, Q, R_eff, F, l, u, U0, z0, y0):
+    """Raise on what the kernel does not take (on every device)."""
+    Bn, h = x_ref.shape[0], x_ref.shape[1]
+    device = x0.device
+    named = {
+        "R": (R, (Bn, 3, 3)), "r_feet": (r_feet, (Bn, 4, 3)),
+        "x_drag": (x_drag, (Bn,)), "f_est": (f_est, (Bn, 6)),
+        "x0": (x0, (Bn, NX)), "x_ref": (x_ref, (Bn, h, NX)),
+        "Q": (Q, (NX,)), "R_eff": (R_eff, (NU, NU)), "F": (F, (5, 3)),
+        "l": (l, (Bn, h, NC)), "u": (u, (Bn, h, NC)),
+        "U0": (U0, (Bn, h, NU)), "z0": (z0, (Bn, h, NC)),
+        "y0": (y0, (Bn, h, NC)),
+    }
+    for name, (t, shape) in named.items():
+        build.check(name, t, shape, device)
+    if h < 1 or Bn < 1:
+        raise ValueError("need B >= 1 and h >= 1")
 
 
 def fused_stagewise_solve_srb(
@@ -280,37 +289,25 @@ def fused_stagewise_solve_srb(
 
     CPU tensors take the plain version; CUDA tensors launch the kernel on
     the current stream and raise if the launch fails."""
+    kw = dict(iters=iters, rho=rho, over_relax=over_relax, ns_it=ns_it, dt=dt,
+              mass=mass, i_inv_diag=i_inv_diag)
+    args = (R, r_feet, x_drag, f_est, x0, x_ref, Q, R_eff, F, l, u, U0, z0, y0)
+    _check_inputs(*args)
+    if x0.device.type == "cpu":
+        return fused_stagewise_solve_srb_reference(*args, **kw)
+    if x0.device.type != "cuda":
+        raise ValueError(f"unsupported device {x0.device}")
+    return _fused_stagewise_solve_srb_cuda(*args, **kw)
+
+
+def _fused_stagewise_solve_srb_cuda(
+    R, r_feet, x_drag, f_est, x0, x_ref, Q, R_eff, F, l, u, U0, z0, y0,
+    iters, rho, over_relax, ns_it, dt, mass, i_inv_diag,
+):
+    """Allocate outputs and scratch, launch the kernel (inputs checked)."""
     global LAUNCHES
     Bn, h = x_ref.shape[0], x_ref.shape[1]
     device = x0.device
-    named = {
-        "R": (R, (Bn, 3, 3)), "r_feet": (r_feet, (Bn, 4, 3)),
-        "x_drag": (x_drag, (Bn,)), "f_est": (f_est, (Bn, 6)),
-        "x0": (x0, (Bn, NX)), "x_ref": (x_ref, (Bn, h, NX)),
-        "Q": (Q, (NX,)), "R_eff": (R_eff, (NU, NU)), "F": (F, (5, 3)),
-        "l": (l, (Bn, h, NC)), "u": (u, (Bn, h, NC)),
-        "U0": (U0, (Bn, h, NU)), "z0": (z0, (Bn, h, NC)),
-        "y0": (y0, (Bn, h, NC)),
-    }
-    for name, (t, shape) in named.items():
-        _check(name, t, shape, device)
-    if h < 1 or Bn < 1:
-        raise ValueError("need B >= 1 and h >= 1")
-    if device.type == "cpu":
-        return fused_stagewise_solve_srb_reference(
-            R, r_feet, x_drag, f_est, x0, x_ref, Q, R_eff, F, l, u, U0, z0,
-            y0, iters=iters, rho=rho, over_relax=over_relax, ns_it=ns_it,
-            dt=dt, mass=mass, i_inv_diag=i_inv_diag)
-    if device.type != "cuda":
-        raise ValueError(f"unsupported device {device}")
-
-    from quad_periodic_mpc_tpu_torch.ops.cuda import build
-
-    lib = build.load(SOURCE)
-    fn = lib.stagewise_srb_launch
-    fn.argtypes = [ctypes.c_void_p] * 24 + [_Params, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-
     with torch.cuda.device(device):
         f32 = dict(dtype=torch.float32, device=device)
         U = torch.empty(Bn, h, NU, **f32)
@@ -335,13 +332,8 @@ def fused_stagewise_solve_srb(
             one_minus_a=1.0 - float(over_relax), d0=d[0], d1=d[1], d2=d[2],
             **k,
         )
-        ptrs = [t.data_ptr() for t in (
-            R, r_feet, x_drag, f_est, x0, x_ref, l, u, U0, z0, y0, Q, R_eff,
-            F, U, z, y, *scratch)]
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*ptrs, params, stream)
-        if err != 0:
-            raise RuntimeError(
-                f"stagewise_srb kernel launch failed: cudaError_t {err}")
-        LAUNCHES += 1
+        build.launch(SOURCE, "stagewise_srb_launch",
+                     [R, r_feet, x_drag, f_est, x0, x_ref, l, u, U0, z0, y0, Q, R_eff,
+                      F, U, z, y, *scratch], params, device)
+    LAUNCHES += 1
     return U, z, y

@@ -1,6 +1,8 @@
 """Small dense linear algebra (counterpart of
-``quad_periodic_mpc_tpu/ops/linalg.py``).  Only ``spd_inverse`` is ported:
-the discrete disturbance residual (ops/estimator.py) needs it."""
+``quad_periodic_mpc_tpu/ops/linalg.py``).  Ported: ``spd_inverse`` (the
+discrete disturbance residual, the WBC and the model evaluation's plain
+version), ``spd_solve``, ``add_block_diag`` and the Cholesky pair the PDIP
+uses with ``kkt="cholesky"``."""
 
 from __future__ import annotations
 
@@ -65,3 +67,32 @@ def spd_inverse(M: torch.Tensor) -> torch.Tensor:
     top = torch.cat([TL, -WSi], dim=-1)
     bot = torch.cat([-WSi.transpose(-1, -2), Si], dim=-1)
     return torch.cat([top, bot], dim=-2)
+
+
+def spd_solve(M: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """Batched SPD solve via spd_inverse; rhs (..., n) or (..., n, k)."""
+    Mi = spd_inverse(M)
+    if rhs.ndim == M.ndim - 1:
+        return (Mi @ rhs[..., None])[..., 0]
+    return Mi @ rhs
+
+
+def add_block_diag(K: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
+    """K + blockdiag(G): K (..., k*b, k*b), G (..., k, b, b)."""
+    batch = K.shape[:-2]
+    k, b = G.shape[-3], G.shape[-1]
+    Kb = K.reshape(batch + (k, b, k, b)).clone()
+    idx = torch.arange(k, device=K.device)
+    Kb[..., idx, :, idx, :] += G.movedim(-3, 0)
+    return Kb.reshape(batch + (k * b, k * b))
+
+
+def cholesky_factor(K: torch.Tensor) -> torch.Tensor:
+    return torch.linalg.cholesky(K)
+
+
+def cho_solve(chol: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """Solve K x = rhs given chol(K); rhs (..., n) or (..., n, r)."""
+    if rhs.ndim == chol.ndim - 1:
+        return torch.cholesky_solve(rhs[..., None], chol)[..., 0]
+    return torch.cholesky_solve(rhs, chol)

@@ -77,7 +77,9 @@ def test_import_leaves_jax_out():
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
         timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20      # every module was imported
+    # every module was imported, slice 2's (articulated model, WBC, plant,
+    # full stack, the three kernel wrappers) included
+    assert int(out.stdout.strip()) >= 40
 
 
 @pytest.mark.parametrize("name", [
@@ -88,6 +90,19 @@ def test_config_defaults_equal_reference(name):
     port = dataclasses.asdict(getattr(t_config, name)())
     assert port == ref
     assert t_config.LoopConfig().dt_mpc == j_config.LoopConfig().dt_mpc
+
+
+@pytest.mark.parametrize("module,name", [
+    ("models.floating_base", "A1ModelParams"), ("sim.articulated_sim", "ContactParams"),
+    ("control.wbc", "WBCGains")])
+def test_slice2_defaults_equal_reference(module, name):
+    """The copied dataclasses of the torque tick, field by field (the
+    PDIPConfig the WBC and the full stack use is checked above)."""
+    import importlib
+
+    ref = getattr(importlib.import_module(f"quad_periodic_mpc_tpu.{module}"), name)()
+    port = getattr(importlib.import_module(f"quad_periodic_mpc_tpu_torch.{module}"), name)()
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
 
 
 def test_a1_constants_equal_reference():
@@ -197,6 +212,39 @@ def test_spd_inverse_matches(n):
     A = rng.normal(size=(4, n, n))
     M = A @ np.swapaxes(A, -1, -2) + n * np.eye(n)
     close(t_linalg.spd_inverse(t(M)), j_linalg.spd_inverse(j(M)), 1e-7, 1e-5)
+
+
+def test_spd_solve_and_block_diag_match():
+    """spd_solve through the same Schur inverse (rtol 1e-5, as above);
+    add_block_diag exact (one f32 add per entry)."""
+    rng = np.random.default_rng(8)
+    A = rng.normal(size=(3, 12, 12))
+    M = A @ np.swapaxes(A, -1, -2) + 12 * np.eye(12)
+    rhs, rhs2 = rng.normal(size=(3, 12)), rng.normal(size=(3, 12, 2))
+    close(t_linalg.spd_solve(t(M), t(rhs)), j_linalg.spd_solve(j(M), j(rhs)), 1e-6, 1e-5)
+    close(t_linalg.spd_solve(t(M), t(rhs2)), j_linalg.spd_solve(j(M), j(rhs2)), 1e-6, 1e-5)
+    G = rng.normal(size=(3, 4, 3, 3))
+    close(t_linalg.add_block_diag(t(M), t(G)), j_linalg.add_block_diag(j(M), j(G)), 0.0)
+    chol = t_linalg.cholesky_factor(t(M))
+    close(t_linalg.cho_solve(chol, t(rhs)),
+          j_linalg.cho_solve(j_linalg.cholesky_factor(j(M)), j(rhs)), 1e-6, 1e-5)
+
+
+def test_cone_apply_and_quat_product_match():
+    """blockdiag(F) products on the 5x3 pyramid and the 6x3 WBIC cone, and
+    the Hamilton product: 1e-6 (three-term f32 sums)."""
+    from quad_periodic_mpc_tpu.estimation import orientation as j_ori
+    from quad_periodic_mpc_tpu_torch.control.wbc import cone_block
+    from quad_periodic_mpc_tpu_torch.estimation import orientation as t_ori
+
+    rng = np.random.default_rng(10)
+    for F in (t_con.pyramid_block(0.4, device="cpu"), cone_block(0.4, device="cpu")):
+        c = F.shape[0]
+        x, y = rng.normal(size=(5, 12)), rng.normal(size=(5, 4 * c))
+        close(t_con.apply(F, t(x)), j_con.apply(j(F), j(x)), 1e-6)
+        close(t_con.apply_T(F, t(y)), j_con.apply_T(j(F), j(y)), 1e-6)
+    a, b = rng.normal(size=(6, 4)), rng.normal(size=(6, 4))
+    close(t_ori.quat_product(t(a), t(b)), j_ori.quat_product(j(a), j(b)), 1e-6)
 
 
 def _residual_inputs(seed=5, B=6):

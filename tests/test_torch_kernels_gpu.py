@@ -7,14 +7,17 @@ installed (the repository's conftest does import JAX, hence --noconftest):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_gpu.py
 """
 
-import numpy as np
 import pytest
 import torch
 
-from quad_periodic_mpc_tpu_torch.config import ADMMConfig, MPCConfig
-from quad_periodic_mpc_tpu_torch.ops import gait, problem, qp_stagewise
+from quad_periodic_mpc_tpu_torch.control.wbc import WBCGains
+from quad_periodic_mpc_tpu_torch.models import floating_base as fb
+from quad_periodic_mpc_tpu_torch.ops.cuda import kinematics_kernel as KK
+from quad_periodic_mpc_tpu_torch.ops.cuda import plant_kernel as PK
 from quad_periodic_mpc_tpu_torch.ops.cuda import stagewise_kernel as SK
-from quad_periodic_mpc_tpu_torch.ops.rotations import quat_to_rotmat, rpy_to_quat
+from quad_periodic_mpc_tpu_torch.ops.cuda import wbc_kernel as WK
+from quad_periodic_mpc_tpu_torch.sim.articulated_sim import ContactParams
+from quad_periodic_mpc_tpu_torch.testing import kernel_cases as KC
 
 
 @pytest.fixture
@@ -24,41 +27,13 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _inputs(B, h, seed, device):
-    """Well-posed fused-solve inputs made with numpy from a seed, built
-    through the port's own stagewise problem assembly."""
-    rng = np.random.default_rng(seed)
-    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
-    hips = np.array([[0.18, -0.13, -0.27], [0.18, 0.13, -0.27],
-                     [-0.18, -0.13, -0.27], [-0.18, 0.13, -0.27]])
-    quat = rpy_to_quat(t(rng.uniform(-0.15, 0.15, (B, 3))))
-    obs = problem.RobotObs(
-        p=t(np.tile([0.0, 0.0, 0.27], (B, 1))), v=t(rng.uniform(-0.3, 0.3, (B, 3))),
-        quat=quat, omega=t(rng.uniform(-0.2, 0.2, (B, 3))),
-        r_feet=t(hips + rng.uniform(-0.03, 0.03, (B, 4, 3))))
-    xref = torch.zeros(B, h, 13, device=device)
-    xref[..., 5] = 0.27
-    seg = torch.as_tensor(rng.integers(0, 16, B), dtype=torch.int32, device=device)
-    table = gait.mpc_table(gait.preset("trotting", device=device), seg, h)
-    f_est, x_drag = t(rng.uniform(-3, 3, (B, 6))), t(rng.uniform(-0.5, 0.5, B))
-    sw, x0 = problem.build_stagewise(obs, xref, table, MPCConfig(horizon=h),
-                                     f_est=f_est, x_drag=x_drag)
-    rho = ADMMConfig().rho
-    R_eff = torch.diag(sw.R) + rho * torch.kron(torch.eye(4, device=device), sw.F.T @ sw.F)
-    z = lambda r: torch.zeros(B, h, r, device=device)
-    args = [quat_to_rotmat(quat), obs.r_feet, x_drag, f_est, x0, sw.x_ref, sw.Q,
-            R_eff, sw.F, sw.l, sw.u, z(12), z(20), z(20)]
-    kw = dict(iters=30, rho=rho, ns_it=qp_stagewise.ns_combine_iters(h))
-    return [a.contiguous() for a in args], kw, sw
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,h", [(37, 10), (300, 48)])
 def test_stagewise_kernel_matches_plain_version(cuda, B, h):
     """U and z to atol 2e-3 (forces ~100 N; FMA contraction and summation
     order differ, amplified through 30 ADMM sweeps); y to 1e-5
     (rho-scaled).  One launch per call."""
-    args, kw, _ = _inputs(B, h, seed=B, device=cuda)
+    args, kw = KC.stagewise_case(B, h, seed=B, device=cuda)
     before = SK.LAUNCHES
     got = SK.fused_stagewise_solve_srb(*args, **kw)
     torch.cuda.synchronize()
@@ -73,7 +48,7 @@ def test_stagewise_kernel_matches_plain_version(cuda, B, h):
 def test_stagewise_kernel_warm_start_matches_plain_version(cuda):
     """Seeded with a previous answer (the warm-start carry of mpc_step),
     kernel and plain version still agree: same tolerances as above."""
-    args, kw, _ = _inputs(256, 10, seed=3, device=cuda)
+    args, kw = KC.stagewise_case(256, 10, seed=3, device=cuda)
     torch.manual_seed(0)
     warm = SK.fused_stagewise_solve_srb_reference(*args, **kw)
     warm = [(w + s * torch.randn_like(w)).contiguous()
@@ -82,3 +57,103 @@ def test_stagewise_kernel_warm_start_matches_plain_version(cuda):
     want = SK.fused_stagewise_solve_srb_reference(*args[:11], *warm, **kw)
     for g, w, tol in zip(got, want, (2e-3, 2e-3, 1e-5)):
         assert float((g - w).abs().max()) < tol
+
+
+def _maxdiff(a, b):
+    return float((a - b).abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 37, 256])
+def test_model_eval_kernel_matches_plain_version(cuda, B):
+    """The tolerances of the reference's test_model_kernel_matches_xla: A
+    1e-4 (entries up to ~20), G 1e-3 (up to ~200), C 2e-3, Jc and p_foot
+    2e-5, Jc qdot 5e-4 (sums in another order); A^{-1} is held by
+    |A^{-1} A - I| < 5e-3, the exact Schur inverse of the kernel's own A."""
+    st = KC.model_states(B, seed=4, device=cuda)
+    mc = fb.build_a1_constants("float32", str(cuda))
+    before = KK.LAUNCHES["fused_model_eval"]
+    A, Ainv, G, C, info = KK.fused_model_eval(st, mc)
+    torch.cuda.synchronize()
+    assert KK.LAUNCHES["fused_model_eval"] == before + 1
+    A_r, _, G_r, C_r, info_r = KK.model_eval_reference(st, mc)
+    assert _maxdiff(A, A_r) < 1e-4
+    assert _maxdiff(G, G_r) < 1e-3
+    assert _maxdiff(C, C_r) < 2e-3
+    assert _maxdiff(info.Jc, info_r.Jc) < 2e-5
+    assert _maxdiff(info.p_foot, info_r.p_foot) < 2e-5
+    assert _maxdiff(info.Jcdqd, info_r.Jcdqd) < 5e-4
+    eye = torch.eye(18, device=cuda).expand(B, 18, 18)
+    assert _maxdiff(Ainv @ A, eye) < 5e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 37])
+def test_contact_kinematics_kernel_matches_plain_version(cuda, B):
+    """Jc and p_foot 2e-5, Jc qdot 5e-4, as test_kinematics_kernel_matches_xla."""
+    st = KC.model_states(B, seed=2, device=cuda)
+    mc = fb.build_a1_constants("float32", str(cuda))
+    before = KK.LAUNCHES["fused_contact_kinematics"]
+    info = KK.fused_contact_kinematics(st, mc)
+    torch.cuda.synchronize()
+    assert KK.LAUNCHES["fused_contact_kinematics"] == before + 1
+    ref = fb.contact_jacobians(st, mc)
+    assert _maxdiff(info.Jc, ref.Jc) < 2e-5
+    assert _maxdiff(info.Jcdqd, ref.Jcdqd) < 5e-4
+    assert _maxdiff(info.p_foot, ref.p_foot) < 2e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 37, 256])
+def test_wbc_kernel_matches_plain_version(cuda, B):
+    """KC.WBC_TOL: q_des 1.5e-3, qd_des 1e-2 (damped pinvs of near-singular
+    projected task Jacobians amplify reordered sums), fr and tau 5e-5 N /
+    Nm after 15 interior-point iterations (below what one iteration fewer
+    moves them)."""
+    st, inp = KC.wbc_state_and_input(B, device=cuda)
+    args = KC.wbc_kernel_args(st, inp)
+    before = WK.LAUNCHES
+    got = WK.fused_wbc(*args, WBCGains(), KC.WBC_PDIP)
+    torch.cuda.synchronize()
+    assert WK.LAUNCHES == before + 1
+    want = WK.fused_wbc_reference(*args, WBCGains(), KC.WBC_PDIP)
+    for g, w, name in zip(got, want, ("q_des", "qd_des", "tau", "fr")):
+        assert bool(torch.isfinite(g).all())
+        assert _maxdiff(g, w) < KC.WBC_TOL[name], name
+
+
+@pytest.mark.gpu
+def test_wbc_run_pallas_rejects_float64(cuda):
+    """The fused WBC takes float32 only: wbc.run(backend="pallas") on
+    float64 CUDA tensors raises instead of running the plain version."""
+    from quad_periodic_mpc_tpu_torch.control import wbc
+
+    st, inp = KC.wbc_state_and_input(2, device=cuda)
+    st = fb.FBState(*(t.double() for t in st))
+    inp = wbc.WBCInput(*(t.double() for t in inp))
+    mc = fb.build_a1_constants("float64", str(cuda))
+    before = WK.LAUNCHES
+    with pytest.raises(TypeError):
+        wbc.run(st, inp, mc, pdip=KC.WBC_PDIP, backend="pallas")
+    assert WK.LAUNCHES == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 37, 256])
+def test_plant_kernel_matches_plain_version(cuda, B):
+    """The tolerances of test_fused_substeps_match_step_fast: pos 1e-5,
+    quat 1e-6, v_body 5e-4, q 1e-5, qd 2e-3, p_foot and anchors 1e-5
+    (10 substeps of stiff penalty contact amplify reordered sums in qdd)."""
+    plant, tau, cache, Jc, pf = KC.plant_case(B, device=cuda)
+    params = ContactParams()
+    before = PK.LAUNCHES
+    pb, pf_b = PK.fused_substeps(plant, tau, 2e-4, params, cache, Jc, pf, 10)
+    torch.cuda.synchronize()
+    assert PK.LAUNCHES == before + 1
+    pa, pf_a = PK.fused_substeps_reference(plant, tau, 2e-4, params, cache, Jc, pf, 10)
+    for g, w, tol in ((pb.fb.pos, pa.fb.pos, 1e-5), (pb.fb.quat, pa.fb.quat, 1e-6),
+                      (pb.fb.v_body, pa.fb.v_body, 5e-4), (pb.fb.q, pa.fb.q, 1e-5),
+                      (pb.fb.qd, pa.fb.qd, 2e-3), (pf_b, pf_a, 1e-5),
+                      (pb.anchor, pa.anchor, 1e-5)):
+        assert _maxdiff(g, w) < tol
+    assert torch.equal(pb.in_contact, pa.in_contact)
