@@ -44,8 +44,9 @@ class MPCConfig:
 @dataclasses.dataclass(frozen=True)
 class ADMMConfig:
     """OSQP-style ADMM settings with a fixed iteration count.  The port
-    runs only ``formulation="stagewise"`` with ``backend="pallas"`` (the
-    fused kernel, a CUDA kernel here); the KKT/NS fields serve the
+    runs only ``formulation="stagewise"``: with ``backend="pallas"`` in the
+    fused kernels (CUDA kernels here), with ``backend="xla"`` on the scan
+    path of ``ops/qp_stagewise.solve``.  The KKT/NS fields serve the
     condensed formulation, which is not ported yet."""
 
     rho: float = 3e-4
@@ -58,7 +59,7 @@ class ADMMConfig:
     ns_polish: int = 0
     refine: int = 0
     # "pallas" names the fused-kernel backend, kept for parity with the
-    # reference's configs; in this package it selects the CUDA kernel.
+    # reference's configs; in this package it selects the CUDA kernels.
     backend: str = "xla"
     eq_scale: float = 1e3
     eq_mode: str = "uniform"

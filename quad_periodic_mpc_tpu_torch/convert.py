@@ -5,7 +5,7 @@ package and this port is its state and configuration.  Each function here
 takes one of the reference's state types (``ControllerState``,
 ``EstimatorState``, ``PlantState``, ``Command``, ``DisturbanceParams``,
 ``GaitParams``, ``FBState``, ``ArtState``, ``ContactInfo``, ``WBCInput``,
-``ModelConstants``) with array leaves of any kind that ``numpy.asarray``
+``ModelConstants``, ``StagewiseProblem``) with array leaves of any kind that ``numpy.asarray``
 accepts, and builds the port's NamedTuple of tensors on the given device,
 keeping each leaf's dtype (the tuple fields of ``ModelConstants`` stay
 Python values).  Nothing here imports JAX.
@@ -18,7 +18,7 @@ import torch
 
 from quad_periodic_mpc_tpu_torch.control import mpc, wbc
 from quad_periodic_mpc_tpu_torch.models import floating_base
-from quad_periodic_mpc_tpu_torch.ops import estimator, gait
+from quad_periodic_mpc_tpu_torch.ops import estimator, gait, qp_stagewise
 from quad_periodic_mpc_tpu_torch.sim import articulated_sim, srb_sim
 
 
@@ -74,6 +74,12 @@ def contact_info(src, device="cuda") -> floating_base.ContactInfo:
 
 def wbc_input(src, device="cuda") -> wbc.WBCInput:
     return _named(wbc.WBCInput, src, device)
+
+
+def stagewise_problem(src, device="cuda") -> qp_stagewise.StagewiseProblem:
+    """The reference's StagewiseProblem; ``c`` keeps its rank, (..., 13) or
+    per step (..., h, 13)."""
+    return _named(qp_stagewise.StagewiseProblem, src, device)
 
 
 def model_constants(src, device="cuda") -> floating_base.ModelConstants:

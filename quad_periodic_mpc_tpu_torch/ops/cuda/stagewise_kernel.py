@@ -1,26 +1,38 @@
-"""Fused-build stagewise Riccati-ADMM solve: CUDA kernel, wrapper and its
-plain PyTorch version.
+"""Stagewise Riccati-ADMM solves: the CUDA kernels, their wrappers and
+their plain PyTorch versions.
 
-Replaces ``quad_periodic_mpc_tpu/ops/pallas/stagewise_kernel.py
-::fused_stagewise_solve_srb`` (``_kernel_srb``).  The kernel source is
-``quad_periodic_mpc_tpu_torch/csrc/stagewise_srb.cu``; its header note
-says what it computes, what bounds it on an H100 and how the design is
-laid out (one thread per instance, gains in instance-minor device
-scratch).
+Four entry points, one for each function of
+``quad_periodic_mpc_tpu/ops/pallas/stagewise_kernel.py`` that reaches a
+TPU kernel.  The sources are under ``quad_periodic_mpc_tpu_torch/csrc``;
+each one's header note says what it computes, what bounds it on an H100
+and how the design is laid out (one thread per instance, gains in
+instance-minor device scratch, the solve itself shared through
+``stagewise_body.cuh``).
 
-- ``fused_stagewise_solve_srb``: the wrapper.  CUDA tensors launch the
-  kernel (or raise); CPU tensors take the plain version.
-- ``fused_stagewise_solve_srb_reference``: the plain version, the same
-  sequential algorithm in batched torch ops in the same elimination order.
-  The tests use it, and ``control/mpc.mpc_step`` uses it on the CPU.
-- ``srb_assemble``: the in-kernel SRB build written in torch (the
-  counterpart of the reference's ``srb_build_dump`` audit).
-- ``LAUNCHES``: kernel launches since the count was last reset.
+- ``fused_stagewise_solve_srb`` (``stagewise_srb.cu``): the dynamics are
+  assembled in the kernel from (R, r_feet, x_drag, f_est).
+- ``fused_stagewise_solve`` (``stagewise_solve.cu``, and
+  ``stagewise_solve_dense.cu`` for ``srb_ad=False``): caller-built Ad, Bd
+  and c; c is one vector per instance ``(B, 13)`` or one per stage
+  ``(B, h, 13)``; ``srb_ad`` picks structured or dense Ad products.
+- ``fused_stagewise_solve_stream`` (``stagewise_stream.cu``): the same
+  solve with Quu^{-1} kept as its 78 upper-triangle entries, for the
+  horizons ``ops/qp_stagewise.solve`` sends it (64 < h <= 128, h % 8 == 0).
+- ``srb_build_dump`` (``stagewise_srb.cu``): the Ad, Bd, c that the first
+  kernel assembles in itself, written out for audit.
+
+Each wrapper launches its kernel for CUDA tensors (or raises) and takes
+the plain version for CPU tensors; the CUDA branch is the wrapper's
+``_*_cuda`` function.  The plain versions (``*_reference``, and
+``srb_assemble`` for the dump) run the same sequential algorithm in batched
+torch ops in the same elimination order; the tests use them, and the
+port's entry points use them on the CPU.  ``LAUNCHES`` counts kernel
+launches by entry point since it was last reset.
 
 NS rescue semantics: a stage whose warm Newton-Schulz inverse fails the
-2e-3 residual gate restarts cold on its own instance.  The TPU kernel
+2e-3 residual gate restarts cold on its own instance.  The TPU kernels
 decided per 128-lane chunk and then ran the extra rounds on every lane of
-the chunk, good lanes included; so the port differs from the JAX kernel,
+the chunk, good lanes included; so the port differs from the JAX kernels,
 within the gate, in lanes that shared a chunk with a bad lane.
 """
 
@@ -36,17 +48,24 @@ from quad_periodic_mpc_tpu_torch.ops.rotations import skew
 NX = 13
 NU = 12
 NC = 20
+NPACK = NU * (NU + 1) // 2          # upper triangle of Quu^{-1}
+STREAM_BLOCK = 8                    # the reference's stage-block granularity
 SOURCE = "stagewise_srb.cu"
+SOURCE_SOLVE = "stagewise_solve.cu"
+SOURCE_SOLVE_DENSE = "stagewise_solve_dense.cu"     # the srb_ad=False instantiation
+SOURCE_STREAM = "stagewise_stream.cu"
 # structured Ad = I + N: live rows / columns of N (reference _N_ROWS/_N_COLS)
 N_ROWS = (0, 1, 2, 3, 4, 5, 11)
 N_COLS = (6, 7, 8, 9, 10, 11, 12)
 
-LAUNCHES = 0
+LAUNCHES = {"fused_stagewise_solve_srb": 0, "fused_stagewise_solve": 0,
+            "fused_stagewise_solve_stream": 0, "srb_build_dump": 0}
 
 
 class _Params(ctypes.Structure):
     _fields_ = (
-        [(n, ctypes.c_int) for n in ("B", "h", "iters", "ns_it", "ns_warm")]
+        [(n, ctypes.c_int) for n in ("B", "h", "iters", "ns_it", "ns_warm",
+                                     "srb_ad", "c_per_step")]
         + [(n, ctypes.c_float) for n in (
             "rho", "rho_inv", "a", "one_minus_a", "dt", "dt2", "dt3",
             "dt_inv_m", "dt2_inv_m", "dt3_inv_m", "d0", "d1", "d2")]
@@ -168,26 +187,59 @@ def stage_quu_inverse(Quu, X_prev, first: bool, ns_it: int, ns_warm: int):
     return X, n_bad
 
 
-def fused_stagewise_solve_srb_reference(
-    R, r_feet, x_drag, f_est, x0, x_ref, Q, R_eff, F, l, u, U0, z0, y0,
-    iters: int, rho: float, over_relax: float = 1.6, ns_it: int = 16,
-    dt: float = 0.026, mass: float = 12.0,
-    i_inv_diag: tuple = (1 / 0.07, 1 / 0.26, 1 / 0.242),
-    stats: dict | None = None,
+def _solve_reference(
+    Ad, Bd, c, x0, x_ref, Q, R_eff, F, l, u, U0, z0, y0,
+    iters: int, rho: float, over_relax: float, ns_it: int,
+    srb_ad: bool = True, pack_minv: bool = False, stats: dict | None = None,
 ):
-    """Plain PyTorch version of the kernel.  Returns (U, z, y).
+    """The solve shared by the plain versions (the kernels' solve_body).
 
-    stats: optional dict; receives "rescued", the number of
-    (instance, stage) pairs whose warm NS inverse failed the gate and
-    restarted cold (the data-dependent part of the kernel's work)."""
-    Ad, Bd, c = srb_assemble(R, r_feet, x_drag, f_est, dt, mass, i_inv_diag)
+    c: (B, 13), or (B, h, 13) for a per-stage affine term.  srb_ad: Ad
+    products as the identity plus the 7 live rows / columns of N = Ad - I,
+    and Bd's zero row 12 skipped; else dense.  pack_minv: apply Quu^{-1}
+    as the symmetric matrix its upper triangle gives (the streamed
+    variant's packed storage).  Returns (U, z, y)."""
     Bn, h = x_ref.shape[0], x_ref.shape[1]
     dtype, device = x0.dtype, x0.device
-    N = Ad - torch.eye(NX, dtype=dtype, device=device)
-    Bd12 = Bd[:, :NU, :]                 # Bd row 12 is structurally zero
-    Bd12T = Bd12.transpose(1, 2)
+    per_step_c = c.ndim == 3
+    c_at = (lambda k: c[:, k]) if per_step_c else (lambda k: c)
     ns_warm = ns_warm_rounds(ns_it)
     rescued = 0
+    nbd = NU if srb_ad else NX          # Bd row 12 is structurally zero
+    Bdn = Bd[:, :nbd, :]
+    BdnT = Bdn.transpose(1, 2)
+    if srb_ad:
+        N = Ad - torch.eye(NX, dtype=dtype, device=device)
+
+        def row_A(X):                                    # X Ad, X (B, r, 13)
+            out = X
+            for m in N_ROWS:
+                out = out + X[:, :, m:m + 1] * N[:, None, m, :]
+            return out
+
+        def At_P(P):                                     # Ad^T P
+            out = P
+            for m in N_ROWS:
+                out = out + N[:, m, :, None] * P[:, None, m, :]
+            return out
+
+        def At_v(v):                                     # Ad^T v
+            out = v
+            for m in N_ROWS:
+                out = out + N[:, m, :] * v[:, m:m + 1]
+            return out
+
+        def A_x(x):                                      # Ad x
+            out = x
+            for m in N_COLS:
+                out = out + N[:, :, m] * x[:, m:m + 1]
+            return out
+    else:
+        AdT = Ad.transpose(1, 2)
+        row_A = lambda X: X @ Ad
+        At_P = lambda P: AdT @ P
+        At_v = lambda v: (AdT @ v[..., None])[..., 0]
+        A_x = lambda x: (Ad @ x[..., None])[..., 0]
 
     # ---- backward Riccati ----
     Qm = torch.diag(Q).expand(Bn, NX, NX)
@@ -196,23 +248,16 @@ def fused_stagewise_solve_srb_reference(
     X = torch.zeros(Bn, NU, NU, dtype=dtype, device=device)
     for kk in range(h):
         k = h - 1 - kk
-        BtP = Bd12T @ P[:, :NU, :]                       # (B, 12, 13)
-        Quu = R_eff + BtP[:, :, :NU] @ Bd12
+        BtP = BdnT @ P[:, :nbd, :]                       # (B, 12, 13)
+        Quu = R_eff + BtP[:, :, :nbd] @ Bdn
         X, n_bad = stage_quu_inverse(Quu, X, kk == 0, ns_it, ns_warm)
         rescued += n_bad
-        Qux = BtP
-        for m in N_ROWS:                                 # BtP Ad
-            Qux = Qux + BtP[:, :, m:m + 1] * N[:, None, m, :]
+        Qux = row_A(BtP)
         K = X @ Qux
-        K_s[k], M_s[k] = K, X
-        Pc_s[k] = (P @ c[..., None])[..., 0]
-        AtP = P
-        for m in N_ROWS:                                 # Ad^T P
-            AtP = AtP + N[:, m, :, None] * P[:, None, m, :]
-        ata = AtP
-        for m in N_ROWS:                                 # Ad^T P Ad
-            ata = ata + AtP[:, :, m:m + 1] * N[:, None, m, :]
-        Pn = (Qm + ata) - Qux.transpose(1, 2) @ K
+        K_s[k] = K
+        M_s[k] = (torch.triu(X) + torch.triu(X, 1).transpose(1, 2)) if pack_minv else X
+        Pc_s[k] = (P @ c_at(k)[..., None])[..., 0]
+        Pn = (Qm + row_A(At_P(P))) - Qux.transpose(1, 2) @ K
         P = (Pn + Pn.transpose(1, 2)) / 2.0
 
     # ---- ADMM iterations ----
@@ -232,20 +277,14 @@ def fused_stagewise_solve_srb_reference(
             rk = (w.reshape(Bn, 4, 5, 1) * F).sum(-2).reshape(Bn, NU)
             v = Pc_s[k] + p
             r_s[k], v_s[k] = rk, v
-            s = (Bd12T @ v[:, :NU, None])[..., 0] - rk
-            atv = v
-            for m in N_ROWS:                             # Ad^T v
-                atv = atv + N[:, m, :] * v[:, m:m + 1]
-            p = (q_s[k] + atv) - (K_s[k].transpose(1, 2) @ s[..., None])[..., 0]
+            s = (BdnT @ v[:, :nbd, None])[..., 0] - rk
+            p = (q_s[k] + At_v(v)) - (K_s[k].transpose(1, 2) @ s[..., None])[..., 0]
         x = x0
         for k in range(h):
-            s = (Bd12T @ v_s[k][:, :NU, None])[..., 0] - r_s[k]
+            s = (BdnT @ v_s[k][:, :nbd, None])[..., 0] - r_s[k]
             kff = (M_s[k] @ s[..., None])[..., 0]
             ut = -(K_s[k] @ x[..., None])[..., 0] - kff
-            ax = x
-            for m in N_COLS:                             # Ad x
-                ax = ax + N[:, :, m] * x[:, m:m + 1]
-            x = (ax + (Bd @ ut[..., None])[..., 0]) + c
+            x = (A_x(x) + (Bd @ ut[..., None])[..., 0]) + c_at(k)
             U[:, k] = a * ut + (1.0 - a) * U[:, k]
             Fu = (F * ut.reshape(Bn, 4, 1, 3)).sum(-1).reshape(Bn, NC)
             fur = a * Fu + (1.0 - a) * z[:, k]
@@ -257,13 +296,51 @@ def fused_stagewise_solve_srb_reference(
     return U, z, y
 
 
-def _check_inputs(R, r_feet, x_drag, f_est, x0, x_ref, Q, R_eff, F, l, u, U0, z0, y0):
-    """Raise on what the kernel does not take (on every device)."""
+def fused_stagewise_solve_srb_reference(
+    R, r_feet, x_drag, f_est, x0, x_ref, Q, R_eff, F, l, u, U0, z0, y0,
+    iters: int, rho: float, over_relax: float = 1.6, ns_it: int = 16,
+    dt: float = 0.026, mass: float = 12.0,
+    i_inv_diag: tuple = (1 / 0.07, 1 / 0.26, 1 / 0.242),
+    stats: dict | None = None,
+):
+    """Plain PyTorch version of the fused-build kernel.  Returns (U, z, y).
+
+    stats: optional dict; receives "rescued", the number of
+    (instance, stage) pairs whose warm NS inverse failed the gate and
+    restarted cold (the data-dependent part of the kernel's work)."""
+    Ad, Bd, c = srb_assemble(R, r_feet, x_drag, f_est, dt, mass, i_inv_diag)
+    return _solve_reference(Ad, Bd, c, x0, x_ref, Q, R_eff, F, l, u, U0, z0, y0,
+                            iters, rho, over_relax, ns_it, stats=stats)
+
+
+def fused_stagewise_solve_reference(
+    Ad, Bd, c, x0, x_ref, Q, R_eff, F, l, u, U0, z0, y0,
+    iters: int, rho: float, over_relax: float = 1.6, ns_it: int = 16,
+    srb_ad: bool = True, stats: dict | None = None,
+):
+    """Plain PyTorch version of ``fused_stagewise_solve``."""
+    return _solve_reference(Ad, Bd, c, x0, x_ref, Q, R_eff, F, l, u, U0, z0, y0,
+                            iters, rho, over_relax, ns_it, srb_ad=srb_ad, stats=stats)
+
+
+def fused_stagewise_solve_stream_reference(
+    Ad, Bd, c, x0, x_ref, Q, R_eff, F, l, u, U0, z0, y0,
+    iters: int, rho: float, over_relax: float = 1.6, ns_it: int = 16,
+    stats: dict | None = None,
+):
+    """Plain PyTorch version of ``fused_stagewise_solve_stream``: the
+    resident solve with Quu^{-1} applied as its upper triangle gives it.
+    (What the kernel recomputes instead of storing, r_k and q_k, are the
+    same numbers either way.)"""
+    return _solve_reference(Ad, Bd, c, x0, x_ref, Q, R_eff, F, l, u, U0, z0, y0,
+                            iters, rho, over_relax, ns_it, pack_minv=True, stats=stats)
+
+
+def _check_common(x0, x_ref, Q, R_eff, F, l, u, U0, z0, y0) -> tuple[int, int]:
+    """Raise on what no stagewise kernel takes (on every device)."""
     Bn, h = x_ref.shape[0], x_ref.shape[1]
     device = x0.device
     named = {
-        "R": (R, (Bn, 3, 3)), "r_feet": (r_feet, (Bn, 4, 3)),
-        "x_drag": (x_drag, (Bn,)), "f_est": (f_est, (Bn, 6)),
         "x0": (x0, (Bn, NX)), "x_ref": (x_ref, (Bn, h, NX)),
         "Q": (Q, (NX,)), "R_eff": (R_eff, (NU, NU)), "F": (F, (5, 3)),
         "l": (l, (Bn, h, NC)), "u": (u, (Bn, h, NC)),
@@ -274,6 +351,41 @@ def _check_inputs(R, r_feet, x_drag, f_est, x0, x_ref, Q, R_eff, F, l, u, U0, z0
         build.check(name, t, shape, device)
     if h < 1 or Bn < 1:
         raise ValueError("need B >= 1 and h >= 1")
+    return Bn, h
+
+
+def _check_observation(R, r_feet, x_drag, f_est, Bn: int, device) -> None:
+    build.check("R", R, (Bn, 3, 3), device)
+    build.check("r_feet", r_feet, (Bn, 4, 3), device)
+    build.check("x_drag", x_drag, (Bn,), device)
+    build.check("f_est", f_est, (Bn, 6), device)
+
+
+def _check_dynamics(Ad, Bd, c, x0, x_ref, Q, R_eff, F, l, u, U0, z0, y0) -> None:
+    Bn, h = _check_common(x0, x_ref, Q, R_eff, F, l, u, U0, z0, y0)
+    device = x0.device
+    build.check("Ad", Ad, (Bn, NX, NX), device)
+    build.check("Bd", Bd, (Bn, NX, NU), device)
+    if c.ndim not in (2, 3):
+        raise ValueError(f"c: expected (B, 13) or (B, h, 13), got {tuple(c.shape)}")
+    build.check("c", c, (Bn, h, NX) if c.ndim == 3 else (Bn, NX), device)
+
+
+def _params(Bn, h, iters, rho, over_relax, ns_it, **extra) -> _Params:
+    return _Params(
+        B=Bn, h=h, iters=int(iters), ns_it=int(ns_it),
+        ns_warm=ns_warm_rounds(int(ns_it)), rho=float(rho),
+        rho_inv=1.0 / float(rho), a=float(over_relax),
+        one_minus_a=1.0 - float(over_relax), **extra)
+
+
+def _dispatch(device, cuda_fn, reference_fn, args, kw):
+    """CPU tensors take the plain version, CUDA tensors the kernel."""
+    if device.type == "cpu":
+        return reference_fn(*args, **kw)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    return cuda_fn(*args, **kw)
 
 
 def fused_stagewise_solve_srb(
@@ -292,12 +404,79 @@ def fused_stagewise_solve_srb(
     kw = dict(iters=iters, rho=rho, over_relax=over_relax, ns_it=ns_it, dt=dt,
               mass=mass, i_inv_diag=i_inv_diag)
     args = (R, r_feet, x_drag, f_est, x0, x_ref, Q, R_eff, F, l, u, U0, z0, y0)
-    _check_inputs(*args)
-    if x0.device.type == "cpu":
-        return fused_stagewise_solve_srb_reference(*args, **kw)
-    if x0.device.type != "cuda":
-        raise ValueError(f"unsupported device {x0.device}")
-    return _fused_stagewise_solve_srb_cuda(*args, **kw)
+    Bn, _ = _check_common(*args[4:])
+    _check_observation(R, r_feet, x_drag, f_est, Bn, x0.device)
+    return _dispatch(x0.device, _fused_stagewise_solve_srb_cuda,
+                     fused_stagewise_solve_srb_reference, args, kw)
+
+
+def fused_stagewise_solve(
+    Ad, Bd, c, x0, x_ref, Q, R_eff, F, l, u, U0, z0, y0,
+    iters: int, rho: float, over_relax: float = 1.6, ns_it: int = 16,
+    srb_ad: bool = True,
+):
+    """Stagewise solve on caller-built dynamics: Ad (B,13,13), Bd (B,13,12),
+    c (B,13) or per stage (B,h,13); the rest as ``fused_stagewise_solve_srb``.
+    Returns (U, z, y).
+
+    srb_ad (default True): Ad and Bd carry the sparsity of the nilpotent
+    SRB discretisation (true of every problem ``problem.build_stagewise``
+    builds) and only the live rows are contracted; pass False for a
+    general dense Ad."""
+    kw = dict(iters=iters, rho=rho, over_relax=over_relax, ns_it=ns_it, srb_ad=srb_ad)
+    args = (Ad, Bd, c, x0, x_ref, Q, R_eff, F, l, u, U0, z0, y0)
+    _check_dynamics(*args)
+    return _dispatch(x0.device, _fused_stagewise_solve_cuda,
+                     fused_stagewise_solve_reference, args, kw)
+
+
+def fused_stagewise_solve_stream(
+    Ad, Bd, c, x0, x_ref, Q, R_eff, F, l, u, U0, z0, y0,
+    iters: int, rho: float, over_relax: float = 1.6, ns_it: int = 16,
+):
+    """The long-horizon solve (``ops/qp_stagewise.solve`` sends it
+    64 < h <= 128); arguments as ``fused_stagewise_solve``, structured Ad.
+    Requires h % 8 == 0, the reference's stage-block granularity.
+    Returns (U, z, y)."""
+    h = x_ref.shape[1]
+    if h % STREAM_BLOCK != 0:
+        raise ValueError(f"the streamed solve needs h % {STREAM_BLOCK} == 0, got h = {h}")
+    kw = dict(iters=iters, rho=rho, over_relax=over_relax, ns_it=ns_it)
+    args = (Ad, Bd, c, x0, x_ref, Q, R_eff, F, l, u, U0, z0, y0)
+    _check_dynamics(*args)
+    return _dispatch(x0.device, _fused_stagewise_solve_stream_cuda,
+                     fused_stagewise_solve_stream_reference, args, kw)
+
+
+def srb_build_dump(R, r_feet, x_drag, f_est, dt: float = 0.026, mass: float = 12.0,
+                   i_inv_diag: tuple = (1 / 0.07, 1 / 0.26, 1 / 0.242)):
+    """The SRB build of ``fused_stagewise_solve_srb`` written out (audit
+    hook): (Ad (B,13,13), Bd (B,13,12), c (B,13)).  On the card it is the
+    kernel's own assembly function; on the CPU ``srb_assemble``."""
+    _check_observation(R, r_feet, x_drag, f_est, x_drag.shape[0], x_drag.device)
+    return _dispatch(x_drag.device, _srb_build_dump_cuda, srb_assemble,
+                     (R, r_feet, x_drag, f_est), dict(dt=dt, mass=mass, i_inv_diag=i_inv_diag))
+
+
+def _gain_scratch(Bn: int, h: int, minv: int, f32: dict) -> list:
+    """Per-stage gains, instance-minor ([stage][row][col][B]): K, Quu^{-1}
+    (``minv`` entries per stage), P c, v = Pc + p; and the Riccati carry."""
+    return [
+        torch.empty(h * NU * NX * Bn, **f32),   # K
+        torch.empty(h * minv * Bn, **f32),      # Quu^{-1}
+        torch.empty(h * NX * Bn, **f32),        # P c
+        torch.empty(h * NX * Bn, **f32),        # v = Pc + p
+        torch.empty(NX * NX * Bn, **f32),       # Riccati carry P
+    ]
+
+
+def _resident_buffers(Bn: int, h: int, f32: dict) -> tuple[list, list]:
+    """The resident kernels' outputs (U, z, y) and their scratch in launch
+    order: the gains, with the stored r_lin and q_stage before the carry."""
+    out = [torch.empty(Bn, h, r, **f32) for r in (NU, NC, NC)]
+    K, Minv, Pc, v, P = _gain_scratch(Bn, h, NU * NU, f32)
+    r_lin, q_stage = torch.empty(h * NU * Bn, **f32), torch.empty(h * NX * Bn, **f32)
+    return out, [K, Minv, Pc, v, r_lin, q_stage, P]
 
 
 def _fused_stagewise_solve_srb_cuda(
@@ -305,35 +484,74 @@ def _fused_stagewise_solve_srb_cuda(
     iters, rho, over_relax, ns_it, dt, mass, i_inv_diag,
 ):
     """Allocate outputs and scratch, launch the kernel (inputs checked)."""
-    global LAUNCHES
+    Bn, h = x_ref.shape[0], x_ref.shape[1]
+    device = x0.device
+    with torch.cuda.device(device):
+        out, scratch = _resident_buffers(Bn, h, dict(dtype=torch.float32, device=device))
+        d = [float(v) for v in i_inv_diag]
+        params = _params(Bn, h, iters, rho, over_relax, ns_it, srb_ad=1, c_per_step=0,
+                         d0=d[0], d1=d[1], d2=d[2], **_constants(float(dt), float(mass)))
+        build.launch(SOURCE, "stagewise_srb_launch",
+                     [R, r_feet, x_drag, f_est, x0, x_ref, l, u, U0, z0, y0, Q, R_eff,
+                      F, *out, *scratch], params, device)
+    LAUNCHES["fused_stagewise_solve_srb"] += 1
+    return tuple(out)
+
+
+def _fused_stagewise_solve_cuda(
+    Ad, Bd, c, x0, x_ref, Q, R_eff, F, l, u, U0, z0, y0,
+    iters, rho, over_relax, ns_it, srb_ad,
+):
+    """Allocate outputs and scratch, launch the kernel (inputs checked)."""
+    Bn, h = x_ref.shape[0], x_ref.shape[1]
+    device = x0.device
+    with torch.cuda.device(device):
+        out, scratch = _resident_buffers(Bn, h, dict(dtype=torch.float32, device=device))
+        params = _params(Bn, h, iters, rho, over_relax, ns_it, srb_ad=int(bool(srb_ad)),
+                         c_per_step=int(c.ndim == 3))
+        source, fn = ((SOURCE_SOLVE, "stagewise_solve_launch") if srb_ad
+                      else (SOURCE_SOLVE_DENSE, "stagewise_solve_dense_launch"))
+        build.launch(source, fn,
+                     [Ad, Bd, c, x0, x_ref, l, u, U0, z0, y0, Q, R_eff, F, *out, *scratch],
+                     params, device)
+    LAUNCHES["fused_stagewise_solve"] += 1
+    return tuple(out)
+
+
+def _fused_stagewise_solve_stream_cuda(
+    Ad, Bd, c, x0, x_ref, Q, R_eff, F, l, u, U0, z0, y0,
+    iters, rho, over_relax, ns_it,
+):
+    """Copy the warm start into the outputs (the kernel updates them in
+    place), allocate scratch, launch the kernel (inputs checked)."""
     Bn, h = x_ref.shape[0], x_ref.shape[1]
     device = x0.device
     with torch.cuda.device(device):
         f32 = dict(dtype=torch.float32, device=device)
-        U = torch.empty(Bn, h, NU, **f32)
-        z = torch.empty(Bn, h, NC, **f32)
-        y = torch.empty(Bn, h, NC, **f32)
-        # per-stage gains, instance-minor: [stage][row][col][B]
-        scratch = [
-            torch.empty(h * NU * NX * Bn, **f32),   # K
-            torch.empty(h * NU * NU * Bn, **f32),   # Quu^{-1}
-            torch.empty(h * NX * Bn, **f32),        # P c
-            torch.empty(h * NX * Bn, **f32),        # v = Pc + p
-            torch.empty(h * NU * Bn, **f32),        # r_lin
-            torch.empty(h * NX * Bn, **f32),        # q_stage
-            torch.empty(NX * NX * Bn, **f32),       # Riccati carry P
-        ]
-        k = _constants(float(dt), float(mass))
-        d = [float(v) for v in i_inv_diag]
-        params = _Params(
-            B=Bn, h=h, iters=int(iters), ns_it=int(ns_it),
-            ns_warm=ns_warm_rounds(int(ns_it)), rho=float(rho),
-            rho_inv=1.0 / float(rho), a=float(over_relax),
-            one_minus_a=1.0 - float(over_relax), d0=d[0], d1=d[1], d2=d[2],
-            **k,
-        )
-        build.launch(SOURCE, "stagewise_srb_launch",
-                     [R, r_feet, x_drag, f_est, x0, x_ref, l, u, U0, z0, y0, Q, R_eff,
-                      F, U, z, y, *scratch], params, device)
-    LAUNCHES += 1
+        U, z, y = U0.clone(), z0.clone(), y0.clone()
+        K, Minv, Pc, v, P = _gain_scratch(Bn, h, NPACK, f32)
+        params = _params(Bn, h, iters, rho, over_relax, ns_it, srb_ad=1,
+                         c_per_step=int(c.ndim == 3))
+        build.launch(SOURCE_STREAM, "stagewise_stream_launch",
+                     [Ad, Bd, c, x0, x_ref, l, u, Q, R_eff, F, U, z, y, K, Minv, Pc, v, P],
+                     params, device)
+    LAUNCHES["fused_stagewise_solve_stream"] += 1
     return U, z, y
+
+
+def _srb_build_dump_cuda(R, r_feet, x_drag, f_est, dt, mass, i_inv_diag):
+    """Allocate the outputs, launch the dump kernel (inputs checked)."""
+    Bn = x_drag.shape[0]
+    device = x_drag.device
+    with torch.cuda.device(device):
+        f32 = dict(dtype=torch.float32, device=device)
+        Ad = torch.empty(Bn, NX, NX, **f32)
+        Bd = torch.empty(Bn, NX, NU, **f32)
+        c = torch.empty(Bn, NX, **f32)
+        d = [float(v) for v in i_inv_diag]
+        params = _Params(B=Bn, d0=d[0], d1=d[1], d2=d[2],
+                         **_constants(float(dt), float(mass)))
+        build.launch(SOURCE, "srb_build_dump_launch",
+                     [R, r_feet, x_drag, f_est, Ad, Bd, c], params, device)
+    LAUNCHES["srb_build_dump"] += 1
+    return Ad, Bd, c

@@ -13,8 +13,9 @@ round-tripped data (``residual_discrete``, or the reference's
 - mode "static": the EMA'd raw residual (f_est_static, SolverMPC.cpp:798).
 - mode "off": nothing reaches the QP.
 
-Modes "faithful" and "ls6", and the predictive horizon, are not ported
-yet (ROADMAP.md Queue 1).
+``predict_horizon`` evaluates the fit at every step of the MPC horizon
+(``EstimatorConfig.predictive``).  Modes "faithful" and "ls6" are not
+ported yet (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -239,6 +240,44 @@ def update(
     )
     f_for_qp = torch.where(release[..., None], f_est, torch.zeros_like(f_est))
     return new_state, f_for_qp
+
+
+def predict_horizon(
+    state: EstimatorState,
+    sim_time: torch.Tensor,
+    dt_step: float,
+    horizon: int,
+    cfg: EstimatorConfig,
+) -> torch.Tensor:
+    """Per-step predicted wrench over the MPC horizon (..., h, 6): with the
+    "ls" fit (offset, B sin + D cos at the fitted frequency) the disturbance
+    at t + k dt is evaluated per step, released as ``update``'s f_for_qp is
+    (count >= ls_release).  For "static" and "off" the reference evaluates
+    its amp + sin form of the never-fitted state, released after
+    ``freeze_after``; this follows it."""
+    if cfg.mode not in ("ls", "static", "off"):
+        raise NotImplementedError(
+            f"estimator mode {cfg.mode!r} is not ported yet, see ROADMAP.md "
+            "Queue 1")
+    dtype, device = state.diffs.dtype, state.diffs.device
+    k = torch.arange(horizon, dtype=dtype, device=device) * torch.as_tensor(
+        dt_step, dtype=dtype, device=device)
+    t_steps = sim_time[..., None] + k                      # (..., h)
+    two_pi = torch.tensor(2.0 * np.pi, dtype=dtype, device=device)
+    wt = two_pi * state.est_freq[..., None] * t_steps
+    if cfg.mode == "ls":
+        comp = (
+            state.est_stat[..., None]
+            + state.est_sin[..., None] * torch.sin(wt)
+            + state.est_cos[..., None] * torch.cos(wt)
+        )
+        release = state.count >= cfg.ls_release
+    else:
+        comp = state.est_amp[..., None] + torch.sin(wt + state.est_phase[..., None])
+        release = state.count > cfg.freeze_after
+    w = torch.zeros(comp.shape + (6,), dtype=dtype, device=device)
+    w[..., 3] = comp
+    return torch.where(release[..., None, None], w, torch.zeros_like(w))
 
 
 def residual_f_ext(

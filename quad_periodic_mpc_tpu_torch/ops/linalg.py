@@ -1,8 +1,9 @@
 """Small dense linear algebra (counterpart of
 ``quad_periodic_mpc_tpu/ops/linalg.py``).  Ported: ``spd_inverse`` (the
 discrete disturbance residual, the WBC and the model evaluation's plain
-version), ``spd_solve``, ``add_block_diag`` and the Cholesky pair the PDIP
-uses with ``kkt="cholesky"``."""
+version), ``spd_solve``, ``add_block_diag``, the Cholesky pair the PDIP
+uses with ``kkt="cholesky"``, and the Newton-Schulz inverses of the
+stagewise scan path (``ns_inverse``, ``ns_posspec_inverse``)."""
 
 from __future__ import annotations
 
@@ -96,3 +97,50 @@ def cho_solve(chol: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     if rhs.ndim == chol.ndim - 1:
         return torch.cholesky_solve(rhs[..., None], chol)[..., 0]
     return torch.cholesky_solve(rhs, chol)
+
+
+def _inf_norm(M: torch.Tensor) -> torch.Tensor:
+    return M.abs().sum(-1).amax(-1)
+
+
+def ns_posspec_inverse(M: torch.Tensor, iters: int) -> torch.Tensor:
+    """Newton-Schulz inverse of a block family (..., n, n) with real
+    spectrum bounded below (SPD, or I + PSD * PSD products) from the
+    scalar seed I / ||M||_inf: every iterate is a polynomial in M, so each
+    eigenvalue's residual squares per round.  The reference's
+    ``lane_ns_inverse`` in batch-leading layout; exact f32 (or f64)
+    products."""
+    eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
+    X = eye / _inf_norm(M)[..., None, None]
+    for _ in range(iters):
+        X = X @ (2.0 * eye - M @ X)
+    return X
+
+
+def ns_inverse(K: torch.Tensor, iters: int = 30, X0: torch.Tensor | None = None,
+               warm_iters: int = 3, polish: int = 0) -> torch.Tensor:
+    """Newton-Schulz iteration X <- X (2I - K X) for K^{-1} of a symmetric
+    PD batch, from the seed I / ||K||_inf or a warm X0.
+
+    A warm X0 is guarded per instance: seeds with ||I - X0 K||_inf >= 0.9
+    (the all-zeros first step included) fall back to the cold seed.  The
+    trip count adapts over the whole batch: ``warm_iters`` rounds if every
+    seed is contractive, else the full ``iters``.  ``polish`` adds rounds
+    (the reference runs them at a higher matmul precision; here every
+    product is full precision already)."""
+    eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
+    norminf = _inf_norm(K)[..., None, None]
+    X_cold = eye.expand(K.shape) / norminf
+    if X0 is None:
+        X, rounds = X_cold, iters
+    else:
+        # the seed-residual product doubles as the first round:
+        # X (2I - K X) == (2I - X K) X
+        M = X0 @ K
+        contractive = _inf_norm(eye - M) < 0.9
+        c = contractive[..., None, None]
+        X = (2.0 * eye - torch.where(c, M, K / norminf)) @ torch.where(c, X0, X_cold)
+        rounds = max((warm_iters if bool(contractive.all()) else iters) - 1, 0)
+    for _ in range(rounds + polish):
+        X = X @ (2.0 * eye - K @ X)
+    return X

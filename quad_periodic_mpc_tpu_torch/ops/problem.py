@@ -1,9 +1,11 @@
 """MPC problem assembly: robot state -> stagewise problem
 (counterpart of ``quad_periodic_mpc_tpu/ops/problem.py``).
 
-Only the stagewise build is ported; it serves the ``return_qp`` audit of
-``control/mpc.mpc_step`` and the KKT checks.  The condensed build is not
-ported yet (ROADMAP.md Queue 1).
+Only the stagewise build is ported.  ``control/mpc.mpc_step`` solves on it
+wherever the fused-build kernel does not apply (a predictive disturbance
+horizon, h > 64, float64, ``backend="xla"``), and audits the fused-build
+solve against it (``return_qp``).  The condensed build is not ported yet
+(ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -36,11 +38,14 @@ def build_stagewise(
     cfg: MPCConfig,
     f_est: torch.Tensor | None = None,
     x_drag=0.0,
+    f_est_steps: torch.Tensor | None = None,
 ) -> tuple[StagewiseProblem, torch.Tensor]:
     """Assemble the stage-wise problem independently of the fused kernel's
     in-kernel build: ct_dynamics + nilpotent ZOH, c = Qd f_est, stage
     weights Qs = 2 diag(w13), Rs = 2 alpha I, pyramid bounds with the
-    upper bound clamped at 1e4.  Returns (problem, x0)."""
+    upper bound clamped at 1e4.  ``f_est_steps`` (..., h, 6), the per-step
+    wrench prediction, gives a per-step affine term c_k = Qd f_k of shape
+    (..., h, 13) instead.  Returns (problem, x0)."""
     h = cfg.horizon
     dtype, device = obs.p.dtype, obs.p.device
     R = quat_to_rotmat(obs.quat)
@@ -50,9 +55,12 @@ def build_stagewise(
     A_ct, B_ct, Q_ct = srb.ct_dynamics(
         R, obs.r_feet, cfg.mass, cfg.inertia_body, x_drag)
     Adt, Bdt, Qdt = discretize.nilpotent_zoh(A_ct, B_ct, Q_ct, cfg.dt_mpc)
-    if f_est is None:
-        f_est = torch.zeros(x0.shape[:-1] + (6,), dtype=dtype, device=device)
-    c = (Qdt @ f_est[..., None])[..., 0]
+    if f_est_steps is not None:
+        c = torch.einsum("...nw,...hw->...hn", Qdt, f_est_steps)
+    else:
+        if f_est is None:
+            f_est = torch.zeros(x0.shape[:-1] + (6,), dtype=dtype, device=device)
+        c = (Qdt @ f_est[..., None])[..., 0]
 
     weights = torch.as_tensor(cfg.weights, dtype=dtype, device=device)
     l, u = constraints.bounds(gait_table, cfg.f_max, cfg.big_number, dtype)

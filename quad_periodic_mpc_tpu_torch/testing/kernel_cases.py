@@ -41,11 +41,9 @@ def _t(a, device):
     return torch.as_tensor(np.asarray(a, np.float32), device=device)
 
 
-def stagewise_case(B: int, h: int, seed: int, device="cuda", iters: int = 30):
-    """Well-posed inputs of the fused stagewise solve (positional args, and
-    the keyword args of an ADMM-``iters`` solve), through the port's own
-    stagewise problem build."""
-    rng = np.random.default_rng(seed)
+def _trot_problem(rng, B: int, h: int, device, per_step_c: bool = False):
+    """A stagewise problem from random trot observations, through the
+    port's own build.  Returns (problem, x0, R, r_feet, x_drag, f_est)."""
     hips = np.array([[0.18, -0.13, -0.27], [0.18, 0.13, -0.27],
                      [-0.18, -0.13, -0.27], [-0.18, 0.13, -0.27]])
     quat = rpy_to_quat(_t(rng.uniform(-0.15, 0.15, (B, 3)), device))
@@ -59,15 +57,59 @@ def stagewise_case(B: int, h: int, seed: int, device="cuda", iters: int = 30):
     seg = torch.as_tensor(rng.integers(0, 16, B), dtype=torch.int32, device=device)
     table = gait.mpc_table(gait.preset("trotting", device=device), seg, h)
     f_est, x_drag = _t(rng.uniform(-3, 3, (B, 6)), device), _t(rng.uniform(-0.5, 0.5, B), device)
+    f_steps = None
+    if per_step_c:      # a wrench that varies over the horizon, as a predictive fit gives
+        k = np.arange(h)[None, :, None]
+        f_steps = _t(rng.uniform(-3, 3, (B, 1, 6)) + rng.uniform(-2, 2, (B, 1, 6)) * np.sin(
+            0.054 * k + rng.uniform(0, 6, (B, 1, 6))), device)
     sw, x0 = problem.build_stagewise(obs, _t(xref, device), table, MPCConfig(horizon=h),
-                                     f_est=f_est, x_drag=x_drag)
+                                     f_est=f_est, x_drag=x_drag, f_est_steps=f_steps)
+    return sw, x0, quat_to_rotmat(quat), obs.r_feet, x_drag, f_est
+
+
+def _solver_tail(sw, B: int, h: int, device, iters: int):
+    """(Q, R_eff, F, l, u, zero warm start) and the keyword args of an
+    ADMM-``iters`` solve at the default rho."""
     rho = ADMMConfig().rho
     R_eff = torch.diag(sw.R) + rho * torch.kron(torch.eye(4, device=device), sw.F.T @ sw.F)
     z = lambda r: torch.zeros(B, h, r, device=device)
-    args = [quat_to_rotmat(quat), obs.r_feet, x_drag, f_est, x0, sw.x_ref, sw.Q, R_eff,
-            sw.F, sw.l, sw.u, z(12), z(20), z(20)]
-    kw = dict(iters=iters, rho=rho, ns_it=qp_stagewise.ns_combine_iters(h))
+    tail = [sw.Q, R_eff, sw.F, sw.l, sw.u, z(12), z(20), z(20)]
+    return tail, dict(iters=iters, rho=rho, ns_it=qp_stagewise.ns_combine_iters(h))
+
+
+def stagewise_case(B: int, h: int, seed: int, device="cuda", iters: int = 30):
+    """Well-posed inputs of the fused-build stagewise solve (positional
+    args, and the keyword args of an ADMM-``iters`` solve)."""
+    sw, x0, R, r_feet, x_drag, f_est = _trot_problem(np.random.default_rng(seed), B, h, device)
+    tail, kw = _solver_tail(sw, B, h, device, iters)
+    args = [R, r_feet, x_drag, f_est, x0, sw.x_ref, *tail]
     return [a.contiguous() for a in args], kw
+
+
+def solve_case(B: int, h: int, seed: int, device="cuda", iters: int = 30,
+               per_step_c: bool = False, dense_ad: bool = False, with_problem: bool = False):
+    """Inputs of ``fused_stagewise_solve`` / ``fused_stagewise_solve_stream``
+    (Ad, Bd, c, x0, x_ref, Q, R_eff, F, l, u, U0, z0, y0 and the keyword
+    args): Ad and Bd from ``build_stagewise``, so that they carry the real
+    sparsity; c shared (B, 13) or per step (B, h, 13).  dense_ad: every
+    entry of Ad and Bd perturbed (the problem stays close to the trot's),
+    for ``srb_ad=False``.  with_problem: also return the StagewiseProblem
+    these are the inputs of (for ``qp_stagewise.kkt_residuals``)."""
+    rng = np.random.default_rng(seed)
+    sw, x0, *_ = _trot_problem(rng, B, h, device, per_step_c)
+    if dense_ad:
+        sw = sw._replace(Ad=sw.Ad + _t(rng.uniform(-2e-3, 2e-3, (B, 13, 13)), device),
+                         Bd=sw.Bd + _t(rng.uniform(-2e-4, 2e-4, (B, 13, 12)), device))
+    tail, kw = _solver_tail(sw, B, h, device, iters)
+    args = [a.contiguous() for a in (sw.Ad, sw.Bd, sw.c, x0, sw.x_ref, *tail)]
+    return (args, kw, sw) if with_problem else (args, kw)
+
+
+def srb_dump_case(B: int, seed: int, device="cuda"):
+    """(R, r_feet, x_drag, f_est) of ``srb_build_dump`` and the problem
+    ``build_stagewise`` makes of the same observations."""
+    sw, _, R, r_feet, x_drag, f_est = _trot_problem(np.random.default_rng(seed), B, 1, device)
+    return [a.contiguous() for a in (R, r_feet, x_drag, f_est)], sw
 
 
 def model_states(B: int, seed: int = 0, device="cuda") -> fb.FBState:

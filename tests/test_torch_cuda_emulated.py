@@ -101,3 +101,50 @@ def test_stagewise_kernel(emulated):
     want = SK.fused_stagewise_solve_srb_reference(*args, **kw)
     for g, w, tol in zip(got, want, (2e-3, 2e-3, 1e-5)):
         assert _maxdiff(g, w) < tol
+
+
+@pytest.mark.parametrize("variant", ["shared_c", "per_step_c", "dense_ad"])
+def test_stagewise_solve_kernel(emulated, variant):
+    """The caller-built solve, structured Ad with a shared and a per-stage
+    c, and dense Ad: U and z 2e-3, y 1e-5, as the fused-build kernel."""
+    args, kw = KC.solve_case(3, 10, seed=5, device="cpu", per_step_c=variant == "per_step_c",
+                             dense_ad=variant == "dense_ad")
+    kw.update(over_relax=1.6, srb_ad=variant != "dense_ad")
+    before = SK.LAUNCHES["fused_stagewise_solve"]
+    got = SK._fused_stagewise_solve_cuda(*args, **kw)
+    assert SK.LAUNCHES["fused_stagewise_solve"] == before + 1
+    want = SK.fused_stagewise_solve_reference(*args, **kw)
+    for g, w, tol in zip(got, want, (2e-3, 2e-3, 1e-5)):
+        assert _maxdiff(g, w) < tol
+
+
+@pytest.mark.parametrize("per_step_c", [False, True])
+def test_stagewise_stream_kernel(emulated, per_step_c):
+    """The streamed solve at h = 16 from a warm start (its in-place
+    update): U and z 2e-3, y 1e-5; the warm start itself is left as it was."""
+    args, kw = KC.solve_case(2, 16, seed=6, device="cpu", iters=20, per_step_c=per_step_c)
+    kw.update(over_relax=1.6)
+    warm = [w.contiguous() for w in SK.fused_stagewise_solve_stream_reference(
+        *args[:10], *args[10:], **dict(kw, iters=3))]
+    kept = [w.clone() for w in warm]
+    before = SK.LAUNCHES["fused_stagewise_solve_stream"]
+    got = SK._fused_stagewise_solve_stream_cuda(*args[:10], *warm, **kw)
+    assert SK.LAUNCHES["fused_stagewise_solve_stream"] == before + 1
+    want = SK.fused_stagewise_solve_stream_reference(*args[:10], *warm, **kw)
+    for g, w, tol in zip(got, want, (2e-3, 2e-3, 1e-5)):
+        assert _maxdiff(g, w) < tol
+    assert all(torch.equal(a, b) for a, b in zip(warm, kept))
+
+
+def test_srb_build_dump_kernel(emulated):
+    """The dump kernel writes what srb_assemble builds (1e-6: the same
+    entries in exact f32, only the 3x3 products may round differently), and
+    that is the independent build's Ad, Bd, c (1e-6)."""
+    args, sw = KC.srb_dump_case(5, seed=8, device="cpu")
+    kw = dict(dt=0.026, mass=12.0, i_inv_diag=(1 / 0.07, 1 / 0.26, 1 / 0.242))
+    before = SK.LAUNCHES["srb_build_dump"]
+    got = SK._srb_build_dump_cuda(*args, **kw)
+    assert SK.LAUNCHES["srb_build_dump"] == before + 1
+    for g, w, b in zip(got, SK.srb_assemble(*args, **kw), (sw.Ad, sw.Bd, sw.c)):
+        assert _maxdiff(g, w) < 1e-6
+        assert _maxdiff(g, b) < 1e-6

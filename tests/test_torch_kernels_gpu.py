@@ -34,10 +34,10 @@ def test_stagewise_kernel_matches_plain_version(cuda, B, h):
     order differ, amplified through 30 ADMM sweeps); y to 1e-5
     (rho-scaled).  One launch per call."""
     args, kw = KC.stagewise_case(B, h, seed=B, device=cuda)
-    before = SK.LAUNCHES
+    before = SK.LAUNCHES["fused_stagewise_solve_srb"]
     got = SK.fused_stagewise_solve_srb(*args, **kw)
     torch.cuda.synchronize()
-    assert SK.LAUNCHES == before + 1
+    assert SK.LAUNCHES["fused_stagewise_solve_srb"] == before + 1
     want = SK.fused_stagewise_solve_srb_reference(*args, **kw)
     for g, w, tol in zip(got, want, (2e-3, 2e-3, 1e-5)):
         assert bool(torch.isfinite(g).all())
@@ -61,6 +61,84 @@ def test_stagewise_kernel_warm_start_matches_plain_version(cuda):
 
 def _maxdiff(a, b):
     return float((a - b).abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,h,per_step_c,dense_ad", [
+    (37, 10, True, False), (300, 48, False, False), (37, 10, False, True),
+    (130, 64, True, False)])
+def test_stagewise_solve_kernel_matches_plain_version(cuda, B, h, per_step_c, dense_ad):
+    """fused_stagewise_solve on caller-built dynamics (per-step and shared
+    c, structured and dense Ad, the longest resident horizon): U and z 2e-3,
+    y 1e-5, as the fused-build kernel.  One launch per call, none of the
+    other entry points."""
+    args, kw = KC.solve_case(B, h, seed=B + h, device=cuda, per_step_c=per_step_c,
+                             dense_ad=dense_ad)
+    before = dict(SK.LAUNCHES)
+    got = SK.fused_stagewise_solve(*args, srb_ad=not dense_ad, **kw)
+    torch.cuda.synchronize()
+    assert SK.LAUNCHES == {**before, "fused_stagewise_solve": before["fused_stagewise_solve"] + 1}
+    want = SK.fused_stagewise_solve_reference(*args, srb_ad=not dense_ad, **kw)
+    for g, w, tol in zip(got, want, (2e-3, 2e-3, 1e-5)):
+        assert bool(torch.isfinite(g).all())
+        assert _maxdiff(g, w) < tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,h,per_step_c", [(5, 72, True), (40, 128, False)])
+def test_stagewise_stream_kernel_matches_plain_version(cuda, B, h, per_step_c):
+    """fused_stagewise_solve_stream from a warm start, 50 sweeps: U and z
+    5e-3 (roundoff between kernel and plain version grows with the chain:
+    h (1 + 2 iters) is 12,928 dependent stage steps at h = 128 against 610
+    at h = 10, where the gap is ~4e-4), y 1e-5; the warm start is left as
+    it was."""
+    args, kw = KC.solve_case(B, h, seed=B + h, device=cuda, iters=50, per_step_c=per_step_c)
+    warm = [w.contiguous() for w in SK.fused_stagewise_solve_stream(
+        *args, **dict(kw, iters=5))]
+    kept = [w.clone() for w in warm]
+    before = SK.LAUNCHES["fused_stagewise_solve_stream"]
+    got = SK.fused_stagewise_solve_stream(*args[:10], *warm, **kw)
+    torch.cuda.synchronize()
+    assert SK.LAUNCHES["fused_stagewise_solve_stream"] == before + 1
+    want = SK.fused_stagewise_solve_stream_reference(*args[:10], *warm, **kw)
+    for g, w, tol in zip(got, want, (5e-3, 5e-3, 1e-5)):
+        assert bool(torch.isfinite(g).all())
+        assert _maxdiff(g, w) < tol
+    assert all(torch.equal(a, b) for a, b in zip(warm, kept))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 37, 2048])
+def test_srb_build_dump_kernel_matches_build(cuda, B):
+    """The dump kernel against srb_assemble and against build_stagewise's
+    Ad, Bd, c: 1e-6 (the same entries in exact f32; only the 3x3 products
+    inside may round differently)."""
+    args, sw = KC.srb_dump_case(B, seed=B, device=cuda)
+    before = SK.LAUNCHES["srb_build_dump"]
+    got = SK.srb_build_dump(*args)
+    torch.cuda.synchronize()
+    assert SK.LAUNCHES["srb_build_dump"] == before + 1
+    for g, w, b in zip(got, SK.srb_assemble(*args), (sw.Ad, sw.Bd, sw.c)):
+        assert _maxdiff(g, w) < 1e-6
+        assert _maxdiff(g, b) < 1e-6
+
+
+@pytest.mark.gpu
+def test_solve_on_the_card_rejects_float64_in_the_kernel_wrappers(cuda):
+    """float64 CUDA tensors raise in the wrappers (no plain version on the
+    card); qp_stagewise.solve sends float64 to the scan path instead."""
+    from quad_periodic_mpc_tpu_torch.config import ADMMConfig
+    from quad_periodic_mpc_tpu_torch.ops import qp_stagewise
+
+    args, kw = KC.solve_case(4, 10, seed=1, device=cuda)
+    before = dict(SK.LAUNCHES)
+    with pytest.raises(TypeError):
+        SK.fused_stagewise_solve(*(a.double() for a in args), **kw)
+    Ad, Bd, c, x0, x_ref, Q, _, F, l, u = (a.double() for a in args[:10])
+    R = torch.full((12,), 8e-5, dtype=torch.float64, device=cuda)
+    prob = qp_stagewise.StagewiseProblem(Ad, Bd, c, x0, x_ref, Q, R, F, l, u)
+    U, _ = qp_stagewise.solve(prob, ADMMConfig(iterations=5, backend="pallas"))
+    assert U.dtype == torch.float64 and U.is_cuda and SK.LAUNCHES == before
 
 
 @pytest.mark.gpu

@@ -157,8 +157,7 @@ def test_warm_solve_passes_kkt_gates():
     assert float(res["dual"].max()) < 1e-3
 
 
-@pytest.mark.parametrize("what", ["condensed", "pdip", "xla_backend", "tunable",
-                                  "faithful"])
+@pytest.mark.parametrize("what", ["condensed", "pdip", "ls6", "tunable", "faithful"])
 def test_unported_branches_raise(what):
     """Branches outside this slice raise instead of falling back."""
     plant, ctrl, cmd, gait, dist = _port(*_jax_setup(prefill_estimator=False))
@@ -168,8 +167,8 @@ def test_unported_branches_raise(what):
         st = tc.ADMMConfig(iterations=ITERS, backend="pallas")
     elif what == "pdip":
         st = tc.PDIPConfig()
-    elif what == "xla_backend":
-        st = tc.ADMMConfig(iterations=ITERS, formulation="stagewise")
+    elif what == "ls6":
+        et = tc.EstimatorConfig(mode="ls6")
     elif what == "tunable":
         kw["tunable"] = object()
     else:
@@ -182,6 +181,6 @@ def test_unported_branches_raise(what):
 def test_mpc_step_on_cpu_launches_no_kernel():
     plant, ctrl, cmd, gait, dist = _port(*_jax_setup(prefill_estimator=False))
     mt, lt, et, st = _configs()[1]
-    before = TK.LAUNCHES
+    before = dict(TK.LAUNCHES)
     t_mpc.mpc_step(ctrl, t_sim.observe(plant), cmd, gait, plant.t, mt, lt, et, st)
     assert TK.LAUNCHES == before

@@ -186,7 +186,7 @@ def test_wrapper_routes_cpu_tensors_to_plain_version():
     nothing."""
     args, kw = _solver_args(_case(seed=7, B=2))
     targs = _torch(args)
-    before = TK.LAUNCHES
+    before = dict(TK.LAUNCHES)
     out = TK.fused_stagewise_solve_srb(*targs, iters=5, **kw)
     ref = TK.fused_stagewise_solve_srb_reference(*targs, iters=5, **kw)
     assert TK.LAUNCHES == before
