@@ -48,7 +48,30 @@ result line) when it fails:
    h = 16 / 32 / 64 lines, which take the fused-build kernel.  Every line
    ends in the warm KKT audit (return_qp; 6e-3 / 1e-3), and the fused-build
    lines also dump the kernel's own build (srb_build_dump) beside the
-   audited problem.
+   audited problem;
+8. hold the slice-4 kernels against their plain versions: fused_kf_innovate
+   on conditioned seeded states at B = 2048, 37 and 1 and on states from
+   tick 3 of a cold start (the looser, stated tolerance; ticks 0 and 1 are
+   printed, not gated), the kernel's and the plain version's x' also within
+   a stated multiple of eps * cond(S) of float64 instance by instance, and
+   the "xla" backend's dense chain timed on the same inputs as the nearest
+   library figure; fused_admm_iterations at B = 2048, h = 10, 30
+   iterations in float32 and with bfloat16 storage, B = 37 at h = 16, B = 1,
+   and one horizon past each resident size, from zero and non-zero starts;
+9. drive the state-estimation tick (estimation/container.update with
+   kf_backend="pallas") at B = 2048 for 500 ticks: a standing A1, the IMU
+   yaw spread over +-pi, the scheduled contact phases those of the trot
+   advancing tick by tick; one fused_kf_innovate launch per tick and no
+   other kernel; yaw zeroed, |v| < 5e-3, body height above the feet within
+   0.02 of the leg kinematics; then 300 ticks of the dense chain ("xla" backend)
+   from a cold start of its own: finite, |v| < 5e-3, velocity and position
+   from the feet within 2e-3 of the kernel's path;
+10. drive the condensed walking period (bench.py's "condensed pallas-f32"
+   line: B = 2048, h = 10, ADMM-30, backend="pallas") through setup_command
+   -> mpc_step -> srb_sim.step: one fused_admm_iterations launch per period
+   and no stagewise launch, the warm KKT audit with qp_admm.kkt_residuals
+   (6e-3 / 1e-3), then the same line with pallas_bf16_kinv=True, audited
+   and printed beside it (not gated).
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 object per kernel with its times and bound, and
@@ -119,6 +142,22 @@ TICK_TOL = {
     "plant": {"pos": 1e-5, "quat": 1e-6, "v_body": 5e-4, "q": 1e-5, "qd": 2e-3,
               "p_foot": 1e-5, "anchor": 1e-5},
 }
+# slice 4: the estimation tick (KFParams.dt = 0.002: 500 ticks are 1 s) and
+# the condensed line (bench.py audits its sixth warm step)
+EST_TICKS, EST_PROFILE_TICKS, EST_XLA_TICKS = 500, 20, 300
+# the dense chain against the kernel's path after EST_XLA_TICKS ticks from a
+# cold start: the reference's gate between its two float32 backends.  The
+# dense chain refines neither solve, so through the transient it is the
+# further of the two from float64, and is held once it settles
+EST_XLA_GAP = 2e-3
+CONDENSED_WARM, CONDENSED_TIMED = 6, 10
+KF_CASES = ((BATCH, 10), (37, 11), (1, 12))            # (B, seed)
+# (B, h, iterations, non-zero start, bf16 storage); the first two are the
+# main path's; the last two lie past the resident sizes
+ADMM_CASES = ((BATCH, HORIZON, ADMM_ITERS, False, False), (BATCH, HORIZON, ADMM_ITERS, True, True),
+              (37, 16, 40, True, False), (37, 16, 40, False, True),
+              (1, HORIZON, ADMM_ITERS, True, False), (5, 20, ADMM_ITERS, True, False),
+              (5, 28, ADMM_ITERS, True, True))
 # H100 SXM: HBM3 rate and float32 (non-tensor-core) peak, NVIDIA data sheet
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
@@ -291,6 +330,31 @@ def substep_flops(substeps: int) -> int:
     per = (gemm_flops(12, 18, 1) + 4 * 30 + gemm_flops(18, 12, 1) + 30
            + gemm_flops(18, 18, 1) + 60 + 30 + 21 + 60 + 24)
     return substeps * per
+
+
+def kf_flops() -> int:
+    """Per instance, loop by loop from csrc/kf.cu: the shifted-add predict,
+    the row / column combinations, the 28x28 Schur inverse, the two solves
+    with their refinement step, P' and the symmetrise / reset."""
+    NX, NY = 18, 28
+    with_d = lambda r, k, s: gemm_flops(r, k, s) + 2 * r * s     # D + alpha * (A B)
+    predict = 12 + 3 * NX * 2 + NX * 3 * 2 + 9 * 2 + NX
+    combine = (NY + 12) + 12 * NX + (12 * NY + NY)               # ey, CP, S
+    solve_x = gemm_flops(NY, NY, 1) + 2 * with_d(NY, NY, 1) + with_d(NX, NY, 1)
+    solve_P = gemm_flops(NY, NY, NX) + 2 * with_d(NY, NY, NX) + with_d(NX, NY, NX)
+    return predict + combine + spd_inv_flops(NY) + solve_x + solve_P + 8 * NX * NX
+
+
+def admm_flops(n: int, m: int, iters: int) -> int:
+    """Per instance, from csrc/admm.cu's loops: rhs (12 a variable), the
+    K^{-1} product (2 n^2), the x update (3 a variable) and the z / y / w row
+    work (17 a row) per iteration, and the set-up of 1/rho and w."""
+    return iters * (2 * n * n + 15 * n + 17 * m) + 3 * m
+
+
+def admm_bytes(B: int, n: int, m: int) -> int:
+    """K^{-1}, q, x0 and l, u, rho, z0, y0 read once, x, z, y written once."""
+    return 4 * (B * (n * n + 2 * n + 5 * m + n + 2 * m) + 15)
 
 
 # floats per instance (inputs, outputs) and shared, each read or written once
@@ -660,7 +724,8 @@ def compare_tick_kernels(device, card: str) -> dict:
     return records
 
 
-def trot_inputs(device, batch: int = BATCH, horizon: int = HORIZON):
+def trot_inputs(device, batch: int = BATCH, horizon: int = HORIZON,
+                formulation: str = "stagewise"):
     """The bench's walking trot (bench.py make_inputs) on the port."""
     import torch
 
@@ -671,7 +736,7 @@ def trot_inputs(device, batch: int = BATCH, horizon: int = HORIZON):
     f32 = dict(dtype=torch.float32, device=device)
     plant = S.init_plant((batch,), body_height=0.29, device=device)
     obs = S.observe(plant)
-    ctrl = M.init_state((batch,), obs, horizon=horizon, formulation="stagewise")
+    ctrl = M.init_state((batch,), obs, horizon=horizon, formulation=formulation)
     ctrl = ctrl._replace(
         iteration=(torch.arange(batch, dtype=torch.int32, device=device) * 7) % 208,
         x_vel_des=torch.full((batch,), VX, **f32))
@@ -766,7 +831,7 @@ def kkt_audit(tag: str, period, ctrl, plant, cmd, gait, dist, est_cfg, dump: boo
     return ctrl, plant, qp
 
 
-def profile_periods(step, ctrl, plant, n: int = 3) -> None:
+def profile_periods(step, ctrl, plant, n: int = 3, unit: str = "period") -> None:
     """Where a main-path period's time goes: device time by kernel name
     over n periods (torch.profiler), and the device's busy share of the
     wall time.  Runs after the counted window."""
@@ -788,7 +853,7 @@ def profile_periods(step, ctrl, plant, n: int = 3) -> None:
     if not rows:
         print("[profile] the profiler recorded no device time: not measured")
         return
-    print(f"[profile] per period: device busy {busy:.2f} ms of {wall_ms / n:.2f} ms "
+    print(f"[profile] per {unit}: device busy {busy:.2f} ms of {wall_ms / n:.2f} ms "
           f"wall ({100 * busy * n / wall_ms:.1f}% busy), "
           f"{sum(r[1] for r in rows)} kernel launches")
     for ms, count, key in sorted(rows, reverse=True)[:8]:
@@ -1082,6 +1147,320 @@ def single_robot(device, card: str) -> None:
           f"{B1_CHAINS} chains of {ticks} ticks on {card}")
 
 
+def compare_slice4_kernels(device, card: str) -> dict:
+    """fused_kf_innovate and fused_admm_iterations against their plain
+    versions from seeded numpy inputs, each timed at its path's shape.
+    Returns {name: record}."""
+    import torch
+
+    from quad_periodic_mpc_tpu_torch.estimation import kf as KF
+    from quad_periodic_mpc_tpu_torch.ops.cuda import admm_kernel as AK
+    from quad_periodic_mpc_tpu_torch.ops.cuda import kf_kernel as FK
+    from quad_periodic_mpc_tpu_torch.testing import kernel_cases as KC
+
+    records = {}
+
+    def hold(what, got, want, tol, names):
+        errs = {n: _maxdiff(g, w) for n, g, w in zip(names, got, want)}
+        print(f"[kernel] {what}: " + ", ".join(
+            f"max|d{n}|={errs[n]:.3g} (tol {tol[n]})" for n in names))
+        check(all(bool(torch.isfinite(g).all()) for g in got), f"{what}: output not finite")
+        for n in names:
+            check(errs[n] <= tol[n], f"{what} disagrees with its plain version: "
+                  f"max|d{n}|={errs[n]} > {tol[n]}")
+        return max(errs.values())
+
+    # ---- fused_kf_innovate ----
+    name, worst = "fused_kf_innovate", 0.0
+    kf = lambda a: FK.fused_kf_innovate(*a, dt=KC.KF_DT)
+    kf_plain = lambda a: FK.fused_kf_innovate_reference(*a, dt=KC.KF_DT)
+    for B, seed in reversed(KF_CASES):
+        args = KC.kf_case(B, seed=seed, device=device)
+        got = kf(args)
+        torch.cuda.synchronize()
+        want = kf_plain(args)
+        worst = max(worst, hold(f"{name} B={B} conditioned states", got, want, KC.KF_TOL, "xP"))
+        # both float32 answers against float64, instance by instance, in
+        # units of eps * cond(S): a fault of order would stand out of these
+        scaled = [KC.kf_x_error_over_conditioning(args, x) for x in (got[0], want[0])]
+        print(f"[kernel] {name} B={B}: |x' - float64| / (eps cond(S)) per instance: kernel max "
+              f"{float(scaled[0].max()):.3g} (median {float(scaled[0].median()):.3g}), plain "
+              f"version max {float(scaled[1].max()):.3g} (median {float(scaled[1].median()):.3g}); "
+              f"gate {KC.KF_COND_FACTOR}")
+        for who, r in zip(("kernel", "plain version"), scaled):
+            check(float(r.max()) < KC.KF_COND_FACTOR,
+                  f"{name} B={B}: the {who}'s x' is {float(r.max())} eps cond(S) from float64")
+    main_args, got_main = args, got                   # B = BATCH, the path's shape
+    want64 = FK.fused_kf_innovate_reference(*(a.double() for a in args), dt=KC.KF_DT)
+    print(f"[kernel] {name} B={B}: against the plain version in float64 the kernel's x' is "
+          f"{_maxdiff(got[0], want64[0]):.3g} off, the plain version's "
+          f"{_maxdiff(want[0], want64[0]):.3g}")
+    for ticks in (0, 1, 3):
+        t_args = KC.kf_transient_case(256, ticks=ticks, seed=7, device=device)
+        got, want = kf(t_args), kf_plain(t_args)
+        if ticks == 3:
+            hold(f"{name} B=256 at tick 3 of a cold start", got, want, KC.KF_TOL_TRANSIENT, "xP")
+        else:
+            want64 = FK.fused_kf_innovate_reference(*(a.double() for a in t_args), dt=KC.KF_DT)
+            print(f"[kernel] {name} B=256 at tick {ticks} of a cold start (not gated): "
+                  f"max|dx|={_maxdiff(got[0], want[0]):.3g}, max|dP|={_maxdiff(got[1], want[1]):.3g}"
+                  f"; against the plain version in float64 the kernel's P' is "
+                  f"{_maxdiff(got[1], want64[1]):.3g} off, the plain version's "
+                  f"{_maxdiff(want[1], want64[1]):.3g}")
+    ms, call_ms = kernel_ms(lambda: kf(main_args), 20, "kf_kernel")
+    plain_ms = time_ms(lambda: kf_plain(main_args), 3)
+    # the nearest thing to a library version: the "xla" backend's dense
+    # chain (products with A, B, C on PyTorch's batched matmul) on the same
+    # inputs; it is one function of the port, not one PyTorch call
+    # (it refines neither solve, so on these states it is not held to the
+    # kernel's gate: its gap is printed)
+    dense = lambda: KF.dense_predict_innovate(*main_args, KF.KFParams(dt=KC.KF_DT))
+    dense_out = dense()
+    check(all(bool(torch.isfinite(t).all()) for t in dense_out), "the dense chain is not finite")
+    print(f"[kernel] {name} B={BATCH}: the dense chain is max|dx|="
+          f"{_maxdiff(dense_out[0], got_main[0]):.3g}, max|dP|="
+          f"{_maxdiff(dense_out[1], got_main[1]):.3g} from the kernel (not gated)")
+    dense_ms = time_ms(dense, 3)
+    flops, nbytes = BATCH * kf_flops(), 4 * BATCH * 761
+    bound_ms, by = bound(flops, nbytes)
+    records[name] = {
+        "name": name, "route": "cuda", "source": "quad_periodic_mpc_tpu_torch/csrc/kf.cu",
+        "replaces": "quad_periodic_mpc_tpu/ops/pallas/kf_kernel.py:159", "launches": 0,
+        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": by, "library_ms": dense_ms,
+        "library": "estimation/kf.dense_predict_innovate, the 'xla' backend's dense chain"}
+    print(f"[kernel] {name} B={BATCH}: kernel {ms:.4f} ms on the device ({call_ms:.4f} ms per "
+          f"call), plain version {plain_ms:.3f} ms, the dense chain {dense_ms:.3f} ms, bound "
+          f"{bound_ms:.5f} ms ({by}; {flops:.3e} flop, {nbytes} B) on {card}")
+
+    # ---- fused_admm_iterations ----
+    name, worst, timed = "fused_admm_iterations", 0.0, {}
+    for B, h, iters, warm, bf16 in reversed(ADMM_CASES):
+        args = KC.admm_case(B, h, seed=300 + h + B, device=device, warm=warm)
+        kw = dict(iters=iters, kinv_bf16=bf16)
+        got = AK.fused_admm_iterations(*args, **kw)
+        torch.cuda.synchronize()
+        what = (f"{name} B={B} h={h} {iters} iterations, {'non-zero' if warm else 'zero'} "
+                f"start, K^-1 {'bf16' if bf16 else 'f32'} "
+                f"{'resident' if AK.kinv_resident(12 * h, 20 * h, bf16) else 'streamed'}")
+        worst = max(worst, hold(what, got, AK.fused_admm_iterations_reference(*args, **kw),
+                                KC.admm_tol(h), "xzy"))
+        if (B, h) == (BATCH, HORIZON):
+            ms, call_ms = kernel_ms(lambda: AK.fused_admm_iterations(*args, **kw), 20,
+                                    "admm_kernel")
+            plain_ms = time_ms(lambda: AK.fused_admm_iterations_reference(*args, **kw), 3)
+            timed[bf16] = (ms, call_ms, plain_ms)
+    n, m = 12 * HORIZON, 20 * HORIZON
+    flops, nbytes = BATCH * admm_flops(n, m, ADMM_ITERS), admm_bytes(BATCH, n, m)
+    bound_ms, by = bound(flops, nbytes)
+    ms, call_ms, plain_ms = timed[False]
+    records[name] = {
+        "name": name, "route": "cuda", "source": "quad_periodic_mpc_tpu_torch/csrc/admm.cu",
+        "replaces": "quad_periodic_mpc_tpu/ops/pallas/admm_kernel.py:138", "launches": 0,
+        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": by, "library_ms": None, "bf16_ms": timed[True][0]}
+    print(f"[kernel] {name} B={BATCH} h={HORIZON} ADMM-{ADMM_ITERS}: kernel {ms:.3f} ms on the "
+          f"device ({call_ms:.3f} ms per call), with bf16 storage {timed[True][0]:.3f} ms "
+          f"({timed[True][1]:.3f}); plain version {plain_ms:.2f} ms (bf16 {timed[True][2]:.2f}), "
+          f"bound {bound_ms:.4f} ms ({by}; {flops:.3e} flop, {nbytes} B) on {card}")
+    return records
+
+
+def all_launch_counts() -> dict:
+    """Every kernel's launch count, by record name."""
+    from quad_periodic_mpc_tpu_torch.ops.cuda import admm_kernel as AK
+    from quad_periodic_mpc_tpu_torch.ops.cuda import kf_kernel as FK
+    from quad_periodic_mpc_tpu_torch.ops.cuda import kinematics_kernel as KK
+    from quad_periodic_mpc_tpu_torch.ops.cuda import plant_kernel as PK
+    from quad_periodic_mpc_tpu_torch.ops.cuda import stagewise_kernel as SK
+    from quad_periodic_mpc_tpu_torch.ops.cuda import wbc_kernel as WK
+
+    return {**SK.LAUNCHES, **KK.LAUNCHES, "fused_wbc": WK.LAUNCHES,
+            "fused_substeps": PK.LAUNCHES, "fused_kf_innovate": FK.LAUNCHES,
+            "fused_admm_iterations": AK.LAUNCHES}
+
+
+def estimation_path(device, card: str) -> int:
+    """Path A, the state-estimation tick at B = BATCH through
+    container.update(kf_backend="pallas").  Returns the fused_kf_innovate
+    launches of the counted run."""
+    import math
+
+    import torch
+
+    from quad_periodic_mpc_tpu_torch.control import leg_controller as lc
+    from quad_periodic_mpc_tpu_torch.estimation import container
+    from quad_periodic_mpc_tpu_torch.models.a1 import A1
+    from quad_periodic_mpc_tpu_torch.ops import gait as G
+    from quad_periodic_mpc_tpu_torch.ops.cuda import kf_kernel as FK
+    from quad_periodic_mpc_tpu_torch.ops.rotations import rpy_to_quat
+
+    B = BATCH
+    f32 = dict(dtype=torch.float32, device=device)
+    q = torch.tensor([0.0, 0.67, -1.3], **f32).expand(B, 4, 3).contiguous()
+    qd, gyro = torch.zeros(B, 4, 3, **f32), torch.zeros(B, 3, **f32)
+    accel = torch.tensor([0.0, 0.0, 9.81], **f32).expand(B, 3)      # at rest
+    yaw = torch.linspace(-math.pi, math.pi, B, **f32)
+    quat_imu = rpy_to_quat(torch.stack([torch.zeros_like(yaw), torch.zeros_like(yaw), yaw], -1))
+    gait = G.preset("trotting", device=device)
+    start = (torch.arange(B, dtype=torch.int32, device=device) * 7) % 208
+
+    def tick(state, it, backend="pallas"):
+        phase = G.contact_state(gait, G.phase(gait, start + it, 13))
+        state, est = container.update(state, quat_imu, gyro, accel, q, qd, phase,
+                                      kf_backend=backend)
+        return state, est
+
+    state = container.init((B,), device=device)
+    torch.cuda.synchronize()
+    FK.LAUNCHES = 0
+    before = all_launch_counts()
+    trust_open = trust_shut = False
+    t0 = time.perf_counter()
+    for it in range(EST_TICKS):
+        state, est = tick(state, it)
+        if it == EST_XLA_TICKS - 1:
+            est_early, feet_early = est, state.kf.xhat[:, 6:]
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / EST_TICKS
+    counts = all_launch_counts()
+    launches = counts.pop("fused_kf_innovate")
+    before.pop("fused_kf_innovate")
+    check(launches == EST_TICKS and counts == before,
+          f"estimation: expected {EST_TICKS} fused_kf_innovate launches and no other, counted "
+          f"{launches} and {counts} (before: {before})")
+    phases = torch.stack([G.contact_state(gait, G.phase(gait, start[:1] + it, 13))[0, 0]
+                          for it in range(0, EST_TICKS, 13)])
+    trust_open, trust_shut = bool((phases > 0.3).any()), bool((phases == 0).any())
+    check(trust_open and trust_shut, "estimation: the contact phase did not open and close")
+
+    yaw_out = float(est.rpy[:, 2].abs().max())
+    v_max = float(est.v_world.abs().max())
+    foot_z = lc.update_data(q, qd, A1).p[..., 2]                    # leg FK, body frame
+    z_rel = est.position[:, 2:3] - state.kf.xhat[:, 8::3]           # body above each foot
+    dz = float((z_rel + foot_z).abs().max())
+    finite = all(bool(torch.isfinite(t).all()) for t in (*est, state.kf.P))
+    print(f"[estimation] B={B}, {EST_TICKS} ticks of container.update(kf_backend='pallas'): "
+          f"{ms:.3f} ms/tick, {B / ms * 1e3:.0f} instance-ticks/s, fused_kf_innovate launches "
+          f"{launches}; max|yaw| {yaw_out:.2g} (< 1e-5), max|v| {v_max:.2g} (< 5e-3), height "
+          f"above the feet within {dz:.2g} of the leg kinematics (< 0.02) on {card}")
+    check(finite, "estimation: non-finite estimate")
+    check(yaw_out < 1e-5, f"estimation: the IMU yaw was not zeroed: {yaw_out}")
+    check(v_max < 5e-3, f"estimation: velocity did not settle: {v_max}")
+    check(dz < 0.02, f"estimation: body height off the leg kinematics by {dz}")
+
+    it0 = [EST_TICKS]
+
+    def step(state, _):
+        state, _est = tick(state, it0[0])
+        it0[0] += 1
+        return state, None
+
+    profile_periods(step, state, None, n=EST_PROFILE_TICKS, unit="tick")
+
+    # the dense chain ("xla" backend) through the same first ticks from a
+    # cold start of its own (P0 = 100 I, the swing legs at trust 0): it
+    # stays finite, settles and ends on the kernel's path
+    tick(container.init((B,), device=device), 0, "xla")            # warms its operators
+    xla_state = container.init((B,), device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for it in range(EST_XLA_TICKS):
+        xla_state, est_x = tick(xla_state, it, "xla")
+    torch.cuda.synchronize()
+    xla_ms = 1e3 * (time.perf_counter() - t0) / EST_XLA_TICKS
+    check(all(bool(torch.isfinite(t).all()) for t in (*est_x, xla_state.kf.P)),
+          "estimation: the dense chain went non-finite")
+    # what the filter observes: the velocity and the body's position from
+    # each foot.  The absolute position is not observed (only p - p_foot is
+    # measured): the offset it takes in the first ticks stays, and is printed
+    from_feet = lambda est, feet: est.position[:, None, :] - feet.reshape(B, 4, 3)
+    gap = max(_maxdiff(est_x.v_world, est_early.v_world),
+              _maxdiff(from_feet(est_x, xla_state.kf.xhat[:, 6:]),
+                       from_feet(est_early, feet_early)))
+    v_x = float(est_x.v_world.abs().max())
+    print(f"[estimation] the dense chain (kf_backend='xla') from a cold start: "
+          f"{xla_ms:.3f} ms/tick over {EST_XLA_TICKS} ticks, finite; max|v| {v_x:.2g} (< 5e-3), "
+          f"velocity and position from the feet within {gap:.2g} of the kernel's path at tick "
+          f"{EST_XLA_TICKS} (< {EST_XLA_GAP}; the unobserved absolute position "
+          f"{_maxdiff(est_x.position, est_early.position):.2g}) on {card}")
+    check(v_x < 5e-3, f"estimation: the dense chain's velocity did not settle: {v_x}")
+    check(gap < EST_XLA_GAP, f"estimation: the dense chain is {gap} off the kernel's path")
+    return launches
+
+
+def condensed_line(device, card: str, bf16: bool) -> int:
+    """Path B, bench.py's condensed walking period at B = BATCH, h = HORIZON,
+    ADMM-ADMM_ITERS in the fused ADMM kernel: warm periods, timed periods
+    with the launch counts set to 0 just before and read just after, then
+    the warm KKT audit (gated in float32; printed for bfloat16 storage).
+    Returns the fused_admm_iterations launches of the timed periods."""
+    import torch
+
+    from quad_periodic_mpc_tpu_torch.config import ADMMConfig, EstimatorConfig, MPCConfig
+    from quad_periodic_mpc_tpu_torch.ops import qp_admm
+    from quad_periodic_mpc_tpu_torch.ops.cuda import admm_kernel as AK
+
+    mpc_cfg, est_cfg = MPCConfig(horizon=HORIZON), EstimatorConfig()
+    solver = ADMMConfig(iterations=ADMM_ITERS, backend="pallas", pallas_bf16_kinv=bf16)
+    period = make_period(device, mpc_cfg, est_cfg, solver)
+    tag = f"condensed {'bf16' if bf16 else 'f32'}"
+    ctrl, plant, cmd, gait, dist = trot_inputs(device, formulation="condensed")
+    for _ in range(CONDENSED_WARM):
+        ctrl, plant, forces, _ = period(ctrl, plant, cmd, gait, dist)
+    torch.cuda.synchronize()
+
+    AK.LAUNCHES = 0
+    before = all_launch_counts()
+    times, all_finite = [], True
+    for _ in range(CONDENSED_TIMED):
+        t0 = time.perf_counter()
+        ctrl, plant, forces, _ = period(ctrl, plant, cmd, gait, dist)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        all_finite &= bool(torch.isfinite(forces).all())
+    counts = all_launch_counts()
+    launches = counts.pop("fused_admm_iterations")
+    before.pop("fused_admm_iterations")
+    med = statistics.median(times)
+    print(f"[{tag}] bench trot B={BATCH} h={HORIZON} ADMM-{ADMM_ITERS} condensed, "
+          f"backend='pallas'{', pallas_bf16_kinv' if bf16 else ''}: {CONDENSED_WARM} warm "
+          f"periods, {CONDENSED_TIMED} timed, median {med:.2f} ms/period (min {min(times):.2f}, "
+          f"max {max(times):.2f}), {BATCH / med * 1e3:.0f} solves/s, fused_admm_iterations "
+          f"launches {launches} on {card}")
+    check(launches == CONDENSED_TIMED and counts == before,
+          f"{tag}: expected {CONDENSED_TIMED} fused_admm_iterations launches and no other, "
+          f"counted {launches} and {counts} (before: {before})")
+    check(all_finite and bool(torch.isfinite(plant.x).all()), f"{tag}: non-finite state")
+    height = float(plant.x[:, 5].mean())
+    check(0.2 < height < 0.4, f"{tag}: body height {height} left [0.2, 0.4]")
+
+    profile_periods(lambda c, p: period(c, p, cmd, gait, dist)[:2], ctrl, plant, n=2)
+
+    ctrl, plant, forces, qp = period(ctrl, plant, cmd, gait, dist, return_qp=True)
+    res = qp_admm.kkt_residuals(qp, ctrl.warm_x, ctrl.warm_z, ctrl.warm_y)
+    primal, dual = float(res["primal"].max()), float(res["dual"].max())
+    print(f"[{tag}] KKT audit of warm period {CONDENSED_WARM + CONDENSED_TIMED + 3}: primal max "
+          f"{primal:.3g}, dual max {dual:.3g} (gates {KKT_PRIMAL} / {KKT_DUAL}"
+          f"{'; reported, not gated' if bf16 else ''}), feasibility max "
+          f"{float(res['feas'].max()):.3g}")
+    if not bf16:
+        check(primal < KKT_PRIMAL and dual < KKT_DUAL, f"{tag}: KKT gate failed")
+    return launches
+
+
+def slice4(device, card: str) -> dict:
+    """Phases 8-10.  Returns the two kernels' records with the launches of
+    their paths' counted runs."""
+    records = compare_slice4_kernels(device, card)
+    records["fused_kf_innovate"]["launches"] = estimation_path(device, card)
+    records["fused_admm_iterations"]["launches"] = condensed_line(device, card, bf16=False)
+    records["fused_admm_iterations"]["bf16_launches"] = condensed_line(device, card, bf16=True)
+    for rec in records.values():
+        check(rec["launches"] > 0, f"{rec['name']} was launched on no driven path")
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -1125,14 +1504,15 @@ def main() -> int:
         solve_records["srb_build_dump"]["launches"] = dumps
         for rec in solve_records.values():
             check(rec["launches"] > 0, f"{rec['name']} was launched on no driven path")
+        slice4_records = slice4(device, card)
         if "jax" in sys.modules or "quad_periodic_mpc_tpu" in sys.modules:
             raise SmokeFailure("JAX or the JAX package was imported")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     print(card)
-    print(json.dumps({"kernels": [record, *tick_records.values(),
-                                  *solve_records.values()]}))
+    print(json.dumps({"kernels": [record, *tick_records.values(), *solve_records.values(),
+                                  *slice4_records.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

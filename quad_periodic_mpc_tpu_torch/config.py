@@ -43,11 +43,15 @@ class MPCConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ADMMConfig:
-    """OSQP-style ADMM settings with a fixed iteration count.  The port
-    runs only ``formulation="stagewise"``: with ``backend="pallas"`` in the
-    fused kernels (CUDA kernels here), with ``backend="xla"`` on the scan
-    path of ``ops/qp_stagewise.solve``.  The KKT/NS fields serve the
-    condensed formulation, which is not ported yet."""
+    """OSQP-style ADMM settings with a fixed iteration count.
+    ``formulation="stagewise"``: with ``backend="pallas"`` in the fused
+    stagewise kernels (CUDA kernels here), with ``backend="xla"`` on the scan
+    path of ``ops/qp_stagewise.solve``.  ``formulation="condensed"``
+    (``ops/qp_admm.solve``): the KKT/NS fields choose how K^{-1} is built,
+    ``backend="pallas"`` runs the iterations in the fused ADMM kernel,
+    ``pallas_bf16_kinv`` stores K^{-1} there as bfloat16.  ``iter_precision``
+    and ``ns_bucket_precision`` choose matmul passes on a TPU and are
+    accepted and ignored here (every product is full float32)."""
 
     rho: float = 3e-4
     sigma: float = 1e-6
@@ -73,7 +77,8 @@ class ADMMConfig:
 
 @dataclasses.dataclass(frozen=True)
 class PDIPConfig:
-    """Primal-dual interior-point settings (not ported yet)."""
+    """Primal-dual interior-point settings (``ops/qp_pdip.solve``: the WBIC
+    relaxation QP and the condensed MPC QP)."""
 
     iterations: int = 25
     tau: float = 0.995

@@ -90,8 +90,9 @@ def controller_tick(
 ):
     """The controller side of one 500 Hz tick: estimate -> (MPC every 13th
     tick) -> swing targets -> WBC -> joint torques.  The MPC solve is the
-    port's ``mpc_step``: pass ``solver=ADMMConfig(formulation="stagewise",
-    backend="pallas")`` (the default PDIP raises NotImplementedError there).
+    port's ``mpc_step`` with ``solver``: the default PDIP on the condensed
+    QP, a condensed ``ADMMConfig``, or ``ADMMConfig(formulation="stagewise",
+    backend="pallas")`` for the fused stagewise kernels.
 
     Returns (ctrl', tau (..., 4, 3), model_terms) with model_terms =
     (A, Ainv, grav, cori, info), the tick's one model evaluation, shared by

@@ -6,21 +6,25 @@
 - ``mpc_step`` runs once per MPC period (every 13 control ticks):
   reference trajectory, disturbance residual + periodic estimator (with its
   per-step prediction over the horizon when ``EstimatorConfig.predictive``),
-  and the stagewise QP solve; then f_ff = -R^T f
-  (ConvexMPCLocomotion.cpp:832-845).  The solve takes the fused-build kernel
-  (``fused_stagewise_solve_srb``, the dynamics assembled in the kernel)
-  where the reference does: ``backend="pallas"``, float32, h <= 64 and a
-  time-invariant disturbance term.  Otherwise ``problem.build_stagewise``
-  builds the problem and ``qp_stagewise.solve`` solves it, in the
-  caller-built kernels (``fused_stagewise_solve``, or
+  and the QP solve; then f_ff = -R^T f (ConvexMPCLocomotion.cpp:832-845).
+  With ``ADMMConfig(formulation="stagewise")`` the solve takes the
+  fused-build kernel (``fused_stagewise_solve_srb``, the dynamics assembled
+  in the kernel) where the reference does: ``backend="pallas"``, float32,
+  h <= 64 and a time-invariant disturbance term.  Otherwise
+  ``problem.build_stagewise`` builds the problem and ``qp_stagewise.solve``
+  solves it, in the caller-built kernels (``fused_stagewise_solve``, or
   ``fused_stagewise_solve_stream`` for 64 < h <= 128) or on its scan path
-  (float64, ``backend="xla"``).
+  (float64, ``backend="xla"``).  With the default
+  ``formulation="condensed"``, ``problem.build_qp`` condenses the horizon
+  and ``qp_admm.solve`` runs the ADMM iterations (``backend="pallas"``: in
+  the fused kernel ``fused_admm_iterations``), the Newton-Schulz K^{-1}
+  carried from period to period in ``warm_kinv``.  A ``PDIPConfig`` solves
+  the same condensed QP by ``qp_pdip.solve``.
 - ``swing_update`` runs every control tick: swing bookkeeping and foot
   targets (ConvexMPCLocomotion.cpp:277-460).
 
-A leading batch axis runs many MPC instances in one call.  Only the
-stagewise formulation is ported; the condensed ADMM and PDIP branches and
-tunable parameters raise NotImplementedError (ROADMAP.md Queue 1).
+A leading batch axis runs many MPC instances in one call.  Tunable
+parameters raise NotImplementedError (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from quad_periodic_mpc_tpu_torch.config import (
     EstimatorConfig,
     LoopConfig,
     MPCConfig,
+    PDIPConfig,
     SwingConfig,
 )
 from quad_periodic_mpc_tpu_torch.models import srb
@@ -41,7 +46,7 @@ from quad_periodic_mpc_tpu_torch.models.a1 import RobotModel
 from quad_periodic_mpc_tpu_torch.ops import condense, constraints, problem, swing
 from quad_periodic_mpc_tpu_torch.ops import estimator as est_ops
 from quad_periodic_mpc_tpu_torch.ops import gait as gait_ops
-from quad_periodic_mpc_tpu_torch.ops import qp_stagewise
+from quad_periodic_mpc_tpu_torch.ops import qp_admm, qp_pdip, qp_stagewise
 from quad_periodic_mpc_tpu_torch.ops.cuda import stagewise_kernel
 from quad_periodic_mpc_tpu_torch.ops.rotations import (
     quat_to_rotmat,
@@ -218,16 +223,17 @@ def mpc_step(
     mpc: MPCConfig,
     loop: LoopConfig,
     est_cfg: EstimatorConfig,
-    solver: ADMMConfig,
+    solver: ADMMConfig | PDIPConfig,
     ground_truth_z: torch.Tensor | None = None,
     tunable=None,
     return_qp: bool = False,
 ):
     """One MPC solve (solveDenseMPC, ConvexMPCLocomotion.cpp:612-870).
 
-    Returns (state', forces (..., h, 4, 3)), plus the StagewiseProblem the
-    solve answered when ``return_qp``: the problem ``qp_stagewise.solve``
-    was given or, on the fused-build branch, the same problem built
+    Returns (state', forces (..., h, 4, 3)), plus the problem the solve
+    answered when ``return_qp``: the condensed ``QPData``, or with the
+    stagewise formulation the StagewiseProblem ``qp_stagewise.solve`` was
+    given or, on the fused-build branch, the same problem built
     independently of the kernel by ``problem.build_stagewise`` (for the KKT
     audit).  ``ground_truth_z`` (...,) replaces the observed CoM height
     (:628).  The solve runs on the device of ``obs``: a CUDA kernel for
@@ -236,10 +242,6 @@ def mpc_step(
     if tunable is not None:
         raise NotImplementedError(
             "tunable parameters are not ported yet, see ROADMAP.md Queue 1")
-    if not isinstance(solver, ADMMConfig) or solver.formulation != "stagewise":
-        raise NotImplementedError(
-            "only the stagewise ADMM formulation is ported; condensed ADMM and "
-            "PDIP: see ROADMAP.md Queue 1")
     dtype = obs.p.dtype
     h = mpc.horizon
 
@@ -287,35 +289,48 @@ def mpc_step(
     lead = obs.p.shape[:-1]
     qp_obs = problem.RobotObs(
         p=p_used, v=obs.v, quat=obs.quat, omega=obs.omega, r_feet=r_feet)
-    # Fused-build gate (reference mpc.py:347-351): the dynamics are
-    # assembled inside the kernel, which needs a time-invariant disturbance
-    # term, is f32-internal and serves h <= 64.
-    use_fused_build = (
-        solver.backend == "pallas" and h <= 64 and f_steps is None
-        and dtype == torch.float32)
-    if use_fused_build:
-        U, z, y = _fused_build_solve(
-            state, R, r_feet, x_comp, f_for_qp, x_k, x_ref, table, mpc, solver)
-        qp_out = None
-        if return_qp:
-            # materialize the same problem, so the KKT audit checks the
-            # production dispatch
+    if isinstance(solver, ADMMConfig) and solver.formulation == "stagewise":
+        # Fused-build gate (reference mpc.py:347-351): the dynamics are
+        # assembled inside the kernel, which needs a time-invariant
+        # disturbance term, is f32-internal and serves h <= 64.
+        use_fused_build = (
+            solver.backend == "pallas" and h <= 64 and f_steps is None
+            and dtype == torch.float32)
+        if use_fused_build:
+            U, z, y = _fused_build_solve(
+                state, R, r_feet, x_comp, f_for_qp, x_k, x_ref, table, mpc, solver)
+            qp_out = None
+            if return_qp:
+                # materialize the same problem, so the KKT audit checks the
+                # production dispatch
+                qp_out, _ = problem.build_stagewise(
+                    qp_obs, x_ref, table, mpc, f_est=f_for_qp, x_drag=x_comp)
+        else:
             qp_out, _ = problem.build_stagewise(
-                qp_obs, x_ref, table, mpc, f_est=f_for_qp, x_drag=x_comp)
+                qp_obs, x_ref, table, mpc, f_est=f_for_qp, x_drag=x_comp,
+                f_est_steps=f_steps)
+            warm = (state.warm_x.reshape(lead + (h, 12)),
+                    state.warm_z.reshape(lead + (h, 20)),
+                    state.warm_y.reshape(lead + (h, 20)))
+            U, info = qp_stagewise.solve(qp_out, solver, warm=warm)
+            z, y = info["z"], info["y"]
+        state = state._replace(
+            warm_x=U.reshape(lead + (h * 12,)),
+            warm_z=z.reshape(lead + (h * 20,)),
+            warm_y=y.reshape(lead + (h * 20,)),
+        )
     else:
-        qp_out, _ = problem.build_stagewise(
-            qp_obs, x_ref, table, mpc, f_est=f_for_qp, x_drag=x_comp,
-            f_est_steps=f_steps)
-        warm = (state.warm_x.reshape(lead + (h, 12)),
-                state.warm_z.reshape(lead + (h, 20)),
-                state.warm_y.reshape(lead + (h, 20)))
-        U, info = qp_stagewise.solve(qp_out, solver, warm=warm)
-        z, y = info["z"], info["y"]
-    state = state._replace(
-        warm_x=U.reshape(lead + (h * 12,)),
-        warm_z=z.reshape(lead + (h * 20,)),
-        warm_y=y.reshape(lead + (h * 20,)),
-    )
+        qp_out, _, _ = problem.build_qp(
+            qp_obs, x_ref, table, mpc, f_est=f_for_qp, x_drag=x_comp, f_est_steps=f_steps)
+        if isinstance(solver, ADMMConfig):
+            warm = qp_admm.ADMMState(
+                x=state.warm_x, z=state.warm_z, y=state.warm_y, kinv=state.warm_kinv)
+            U, warm_out = qp_admm.solve(qp_out, solver, warm=warm)
+            state = state._replace(
+                warm_x=warm_out.x, warm_z=warm_out.z, warm_y=warm_out.y,
+                warm_kinv=warm_out.kinv)
+        else:
+            U, _ = qp_pdip.solve(qp_out, solver)
 
     forces = U.reshape(lead + (h, 4, 3))
     f_mpc0 = forces[..., 0, :, :]

@@ -5,7 +5,8 @@ package and this port is its state and configuration.  Each function here
 takes one of the reference's state types (``ControllerState``,
 ``EstimatorState``, ``PlantState``, ``Command``, ``DisturbanceParams``,
 ``GaitParams``, ``FBState``, ``ArtState``, ``ContactInfo``, ``WBCInput``,
-``ModelConstants``, ``StagewiseProblem``) with array leaves of any kind that ``numpy.asarray``
+``ModelConstants``, ``StagewiseProblem``, ``KFState``, the estimation
+container's ``EstimatorState``, ``QPData``, ``ADMMState``) with array leaves of any kind that ``numpy.asarray``
 accepts, and builds the port's NamedTuple of tensors on the given device,
 keeping each leaf's dtype (the tuple fields of ``ModelConstants`` stay
 Python values).  Nothing here imports JAX.
@@ -17,8 +18,9 @@ import numpy as np
 import torch
 
 from quad_periodic_mpc_tpu_torch.control import mpc, wbc
+from quad_periodic_mpc_tpu_torch.estimation import container, kf
 from quad_periodic_mpc_tpu_torch.models import floating_base
-from quad_periodic_mpc_tpu_torch.ops import estimator, gait, qp_stagewise
+from quad_periodic_mpc_tpu_torch.ops import estimator, gait, qp_admm, qp_stagewise
 from quad_periodic_mpc_tpu_torch.sim import articulated_sim, srb_sim
 
 
@@ -80,6 +82,26 @@ def stagewise_problem(src, device="cuda") -> qp_stagewise.StagewiseProblem:
     """The reference's StagewiseProblem; ``c`` keeps its rank, (..., 13) or
     per step (..., h, 13)."""
     return _named(qp_stagewise.StagewiseProblem, src, device)
+
+
+def kf_state(src, device="cuda") -> kf.KFState:
+    return _named(kf.KFState, src, device)
+
+
+def estimation_state(src, device="cuda") -> container.EstimatorState:
+    """The estimation container's EstimatorState (``estimator_state`` is the
+    periodic disturbance estimator's)."""
+    return _named(container.EstimatorState, src, device, {"kf": kf_state})
+
+
+def qp_data(src, device="cuda") -> qp_admm.QPData:
+    return _named(qp_admm.QPData, src, device)
+
+
+def admm_state(src, device="cuda") -> qp_admm.ADMMState:
+    """The reference's ADMMState; a missing ``kinv`` stays None."""
+    return _named(qp_admm.ADMMState, src, device,
+                  {"kinv": lambda v, d: None if v is None else tensor(v, d)})
 
 
 def model_constants(src, device="cuda") -> floating_base.ModelConstants:

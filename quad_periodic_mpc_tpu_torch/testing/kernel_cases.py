@@ -2,7 +2,7 @@
 
 The recipes of the reference package's kernel tests
 (``tests/test_stagewise.py``'s fused-build test, ``test_kinematics_kernel.py``,
-``test_wbc_kernel.py``, ``test_plant_kernel.py``), built on the port's own
+``test_wbc_kernel.py``, ``test_plant_kernel.py``, ``test_kf.py``), built on the port's own
 functions, so the card tests, the CPU tests and ``chip_smoke.py`` hold each
 kernel to its plain version on the same inputs.
 """
@@ -15,7 +15,7 @@ import torch
 from quad_periodic_mpc_tpu_torch.config import ADMMConfig, MPCConfig, PDIPConfig
 from quad_periodic_mpc_tpu_torch.control import wbc
 from quad_periodic_mpc_tpu_torch.models import floating_base as fb
-from quad_periodic_mpc_tpu_torch.ops import gait, problem, qp_stagewise
+from quad_periodic_mpc_tpu_torch.ops import constraints, gait, linalg, problem, qp_admm, qp_stagewise
 from quad_periodic_mpc_tpu_torch.ops.cuda import kinematics_kernel
 from quad_periodic_mpc_tpu_torch.ops.rotations import quat_to_rotmat, rpy_to_quat
 from quad_periodic_mpc_tpu_torch.sim import articulated_sim as art
@@ -41,9 +41,8 @@ def _t(a, device):
     return torch.as_tensor(np.asarray(a, np.float32), device=device)
 
 
-def _trot_problem(rng, B: int, h: int, device, per_step_c: bool = False):
-    """A stagewise problem from random trot observations, through the
-    port's own build.  Returns (problem, x0, R, r_feet, x_drag, f_est)."""
+def _trot_obs(rng, B: int, h: int, device):
+    """Random trot observations: (obs, x_ref, gait table, f_est, x_drag)."""
     hips = np.array([[0.18, -0.13, -0.27], [0.18, 0.13, -0.27],
                      [-0.18, -0.13, -0.27], [-0.18, 0.13, -0.27]])
     quat = rpy_to_quat(_t(rng.uniform(-0.15, 0.15, (B, 3)), device))
@@ -57,14 +56,21 @@ def _trot_problem(rng, B: int, h: int, device, per_step_c: bool = False):
     seg = torch.as_tensor(rng.integers(0, 16, B), dtype=torch.int32, device=device)
     table = gait.mpc_table(gait.preset("trotting", device=device), seg, h)
     f_est, x_drag = _t(rng.uniform(-3, 3, (B, 6)), device), _t(rng.uniform(-0.5, 0.5, B), device)
+    return obs, _t(xref, device), table, f_est, x_drag
+
+
+def _trot_problem(rng, B: int, h: int, device, per_step_c: bool = False):
+    """A stagewise problem from random trot observations, through the
+    port's own build.  Returns (problem, x0, R, r_feet, x_drag, f_est)."""
+    obs, xref, table, f_est, x_drag = _trot_obs(rng, B, h, device)
     f_steps = None
     if per_step_c:      # a wrench that varies over the horizon, as a predictive fit gives
         k = np.arange(h)[None, :, None]
         f_steps = _t(rng.uniform(-3, 3, (B, 1, 6)) + rng.uniform(-2, 2, (B, 1, 6)) * np.sin(
             0.054 * k + rng.uniform(0, 6, (B, 1, 6))), device)
-    sw, x0 = problem.build_stagewise(obs, _t(xref, device), table, MPCConfig(horizon=h),
+    sw, x0 = problem.build_stagewise(obs, xref, table, MPCConfig(horizon=h),
                                      f_est=f_est, x_drag=x_drag, f_est_steps=f_steps)
-    return sw, x0, quat_to_rotmat(quat), obs.r_feet, x_drag, f_est
+    return sw, x0, quat_to_rotmat(obs.quat), obs.r_feet, x_drag, f_est
 
 
 def _solver_tail(sw, B: int, h: int, device, iters: int):
@@ -184,3 +190,138 @@ def plant_case(B: int, seed: int = 0, device="cuda", penetration: float = 3e-3):
     cache = art.model_cache(plant, mc)
     info = fb.contact_jacobians(plant.fb, mc)
     return plant, tau, cache, info.Jc, info.p_foot
+
+
+# Fused KF kernel vs its plain version, max abs error over x' and P'.  On
+# conditioned states (kf_case: measurements ~N(0, 1) against r down to 1e-3,
+# x' up to ~4, P' up to ~10) the two differ by f32 sums taken in another
+# order, and the gap follows cond(S): over the 2048 draws of seed 10 the gap
+# on x' has median 2.5e-5, 99th percentile 2.2e-4 and a worst instance of
+# 3.05e-3 on an H100 (3.3e-3 through the host compiler).  Against the plain version's
+# float64 run the H100 read 3.88e-3 for the kernel and 1.16e-3 for the plain
+# version at their worst instances; the host compiler read the reverse, 1.0e-3
+# and 3.5e-3: neither order is the better one.  So the absolute gate on x' is
+# 5e-3, and beside it every comparison holds both the kernel and the plain
+# version, instance by instance, to KF_COND_FACTOR * eps_f32 * cond(S) from
+# float64 (kf_x_error_over_conditioning): that ratio measured 2.89 (kernel)
+# and 1.63 (plain version) at its worst on an H100, medians 0.16 and 0.17
+# (chip_smoke.py).  A fault of order in the kernel would show as a ratio far above the
+# plain version's on well-conditioned instances.  P' stays within 4.2e-5.  (The
+# reference holds its kernel to a float64 oracle at 2e-3 and 5e-3 on five
+# such draws.)  Inside the start-up
+# transient (kf_transient_case: P0 = 100 I against r ~ 1e-3, cond(S) ~ 5e5)
+# the update (I - K C) Pm cancels Pm's 100s down to ~1e-3 and amplifies any
+# reordering of the inverse's sums by ~Pm^2, so the transient states get a
+# second, looser tolerance (the reference's tests/test_kf.py says ~1e-2 of
+# its kernel against its XLA chain).  It is held at tick 3.  Measured on the
+# CPU at B = 16, kernel's order against the plain version's: 6e-3 on P' at
+# tick 0, 3e-8 at tick 3, and at tick 1 (foot variances still 20, body
+# variances already 2) up to 1.3 on entries of 1.8 for single instances,
+# where the reference's kernel in interpret mode gives this kernel's numbers
+# to 3e-8 and float64 sits with the plain version: the filter forgets it
+# within two ticks, and no tolerance is stated for that tick.
+KF_TOL = {"x": 5e-3, "P": 2e-4}
+KF_TOL_TRANSIENT = {"x": 2e-3, "P": 2e-2}
+KF_COND_FACTOR = 8.0
+KF_DT = 0.002
+
+
+def kf_x_error_over_conditioning(args, x_new: torch.Tensor) -> torch.Tensor:
+    """Per instance, max |x' - x'_float64| / (eps_f32 * cond(S)) for an
+    answer ``x_new`` of ``fused_kf_innovate`` on ``args``: x'_float64 from the
+    plain version run in float64, S = C Pm C^T + diag(r) and its 2-norm
+    condition number in float64.  Held below KF_COND_FACTOR."""
+    from quad_periodic_mpc_tpu_torch.ops.cuda import kf_kernel
+
+    xhat, P, a, y, qd, rd = (t.double() for t in args)
+    x64, _ = kf_kernel.fused_kf_innovate_reference(xhat, P, a, y, qd, rd, dt=KF_DT)
+    P1 = torch.cat([P[:, 0:3] + KF_DT * P[:, 3:6], P[:, 3:]], dim=1)
+    Pm = torch.cat([P1[:, :, 0:3] + KF_DT * P1[:, :, 3:6], P1[:, :, 3:]], dim=2)
+    CP = kf_kernel._cp_rows(Pm + torch.diag_embed(qd))
+    S = kf_kernel._cp_rows(CP.transpose(1, 2)) + torch.diag_embed(rd)
+    err = (x_new.double() - x64).abs().amax(dim=1)
+    return err / (2.0 ** -24 * torch.linalg.cond(S))
+
+
+def kf_case(B: int, seed: int = 0, device="cuda"):
+    """Conditioned seeded inputs of ``fused_kf_innovate`` (the generator of
+    the reference's test_kf_pallas_kernel_matches_oracle): (xhat, P, a, y,
+    q_diag, r_diag)."""
+    rng = np.random.default_rng(seed)
+    xhat = rng.normal(size=(B, 18))
+    Ph = rng.normal(size=(B, 18, 18)).astype(np.float32)
+    P = Ph @ Ph.transpose(0, 2, 1) + 18 * np.eye(18)
+    a, y = rng.normal(size=(B, 3)), rng.normal(size=(B, 28))
+    qd, rd = rng.uniform(0.001, 1, (B, 18)), rng.uniform(0.001, 1, (B, 28))
+    return [_t(v, device).contiguous() for v in (xhat, P, a, y, qd, rd)]
+
+
+def kf_transient_case(B: int, ticks: int = 3, seed: int = 0, device="cuda"):
+    """The kernel's inputs at tick ``ticks`` of a cold start (P0 = 100 I): a
+    standing robot, slightly tilted, contact phases spread over the batch so
+    the trust inflation varies, the earlier ticks run through the plain
+    version."""
+    from quad_periodic_mpc_tpu_torch.control import leg_controller as lc
+    from quad_periodic_mpc_tpu_torch.estimation import kf
+    from quad_periodic_mpc_tpu_torch.models.a1 import A1
+    from quad_periodic_mpc_tpu_torch.ops.cuda import kf_kernel
+    from quad_periodic_mpc_tpu_torch.ops.rotations import rpy_to_rotmat
+
+    rng = np.random.default_rng(seed)
+    q = _t(np.tile([0.0, 0.67, -1.3], (B, 4, 1)) + rng.uniform(-0.05, 0.05, (B, 4, 3)), device)
+    legs = lc.update_data(q, torch.zeros_like(q), A1)
+    p_rel = _t(A1.hip_locations(), device) + legs.p
+    inputs = (_t(np.tile([0.0, 0.0, 9.81], (B, 1)), device),
+              rpy_to_rotmat(_t(rng.uniform(-0.1, 0.1, (B, 3)), device)).transpose(1, 2),
+              torch.zeros(B, 3, device=device),
+              p_rel, legs.v, _t(rng.uniform(0.0, 1.0, (B, 4)), device))
+    state, params = kf.init((B,), device=device), kf.KFParams(dt=KF_DT)
+    for tick in range(ticks + 1):
+        a, y, qd, rd = kf.innovation_inputs(state, *inputs, params)
+        args = [v.contiguous() for v in (state.xhat, state.P, a, y, qd, rd)]
+        if tick < ticks:
+            state = kf.KFState(*kf_kernel.fused_kf_innovate_reference(*args, dt=KF_DT))
+    return args
+
+
+# Fused ADMM kernel vs its plain version, max abs error: x and z are forces
+# (~100 N), y is rho-scaled (rho = 3e-4).  The kernel sums each row of
+# K^{-1} rhs in the order j = 0.., the plain version as a batched product,
+# and every iteration carries the difference on.  The gap grows with the
+# length of that sum, n = 12 h, more than with the iteration count: on an
+# H100 it reads 4.4e-4, 7.7e-4, 1.2e-3 and 4.2e-3 at h = 10, 16, 20 and 28
+# after 30 to 40 iterations, and 3.1e-3 at h = 28 after 10 (chip_smoke.py).  So one tolerance,
+# proportional to h: 2e-4 h on x and z, which at h = 10 is the stagewise
+# kernels' gate of 2e-3 on the same quantities, and 1e-5 on y.  The
+# bf16-storage variant is held to the plain version on the same rounded
+# operator, so the same tolerance applies, and so do the sizes past the
+# resident ones (K^{-1} read from device memory every iteration).
+def admm_tol(h: int) -> dict:
+    return {"x": 2e-4 * h, "z": 2e-4 * h, "y": 1e-5}
+
+
+def admm_case(B: int, h: int, seed: int = 0, device="cuda", warm: bool = False,
+              with_qp: bool = False):
+    """Inputs of ``fused_admm_iterations`` (K_inv, q, l, u, rho, F, x0, z0,
+    y0) for the condensed QP of random trot observations: K^{-1} the exact
+    (Cholesky) inverse of the uniform-rho KKT matrix, the upper bounds as
+    ``build_qp`` gives them (5e10 on the friction rows).  warm: a start near
+    a previous answer instead of zeros.  with_qp: also return the QPData."""
+    rng = np.random.default_rng(seed)
+    obs, xref, table, f_est, x_drag = _trot_obs(rng, B, h, device)
+    qp, _, _ = problem.build_qp(obs, xref, table, MPCConfig(horizon=h), f_est=f_est,
+                                x_drag=x_drag)
+    cfg = ADMMConfig()
+    K_inv = linalg.cho_inverse(linalg.cholesky_factor(qp_admm.build_kkt_uniform(qp, cfg)))
+    K_inv = (K_inv + K_inv.transpose(1, 2)) / 2.0
+    rho = torch.full_like(qp.l, cfg.rho)
+    n, m = 12 * h, 20 * h
+    if warm:
+        x0 = _t(rng.uniform(-5, 5, (B, n)), device)
+        x0[:, 2::3] += 30.0
+        z0 = torch.clamp(constraints.apply(qp.F, x0), qp.l, qp.u)
+        y0 = _t(rng.uniform(-1e-3, 1e-3, (B, m)), device)
+    else:
+        x0, z0, y0 = (torch.zeros(B, w, device=device) for w in (n, m, m))
+    args = [a.contiguous() for a in (K_inv, qp.q, qp.l, qp.u, rho, qp.F, x0, z0, y0)]
+    return (args, qp) if with_qp else args

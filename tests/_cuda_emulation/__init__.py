@@ -3,7 +3,8 @@
 Each ``quad_periodic_mpc_tpu_torch/csrc/*.cu`` is compiled by the host C++
 compiler against the stand-in ``cuda_runtime.h`` beside this file: a launch
 runs the grid's blocks one after another with each block's threads as
-std::threads, and ``__syncwarp()`` is a barrier over the block.  Inside
+std::threads, ``__syncwarp()`` and ``__syncthreads()`` are a barrier over the
+block, and a launch's dynamic shared memory is one buffer per block.  Inside
 ``emulated()`` the port's ``ops/cuda/build.load`` returns these libraries
 and ``torch.cuda.device`` / ``current_stream`` do nothing, so a wrapper's
 CUDA branch (its ``_*_cuda`` function) runs the kernel's own arithmetic on
@@ -30,7 +31,8 @@ import types
 from pathlib import Path
 
 _HERE = Path(__file__).resolve().parent
-_LAUNCH = re.compile(r"(\w+)<<<([^,]+),\s*([^,]+),[^>]*>>>\(")
+_LAUNCH = re.compile(r"(\w+)<<<([^,]+),\s*([^,]+),\s*([^,]+),[^>]*>>>\(")
+_DYNAMIC_SMEM = re.compile(r"extern\s+__shared__\s+(\w+)\s+(\w+)\[\];")
 FLAGS = ["-std=c++17", "-O1", "-fPIC", "-shared", "-pthread"]
 
 
@@ -47,7 +49,8 @@ def build(source: str) -> Path:
     cxx = compiler()
     if cxx is None:
         raise RuntimeError("no C++ compiler for the CPU emulation")
-    text = _LAUNCH.sub(r"EMU_LAUNCH(\2, \3, \1, ", (cuda_build.CSRC / source).read_text())
+    text = _LAUNCH.sub(r"EMU_LAUNCH(\2, \3, \4, \1, ", (cuda_build.CSRC / source).read_text())
+    text = _DYNAMIC_SMEM.sub(r"\1* \2 = static_cast<\1*>(emu_dynamic_smem);", text)
     digest = hashlib.sha1(text.encode() + " ".join(FLAGS).encode())
     for part in [*sorted(cuda_build.CSRC.glob("*.cuh")), *sorted(_HERE.glob("*.[hc]*"))]:
         digest.update(part.read_bytes())

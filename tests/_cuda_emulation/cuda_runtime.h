@@ -1,11 +1,15 @@
 // Host-compiler stand-in for the CUDA runtime header, so the port's csrc
 // kernels compile and run on the CPU (see __init__.py).  A launch runs the
 // grid's blocks one after another, each block's threads as std::threads;
-// __syncwarp() is a barrier over the block's threads; __shared__ data is a
-// function-local static, shared by the threads of the block being run.
+// __syncwarp() and __syncthreads() are a barrier over the block's threads;
+// __shared__ data is a function-local static, shared by the threads of the
+// block being run; `extern __shared__ T name[];` is rewritten to a pointer
+// to the launch's dynamic shared memory, allocated anew for each block.
 #pragma once
 
 #include <math.h>
+#include <stdint.h>
+#include <string.h>
 
 #include <cmath>
 #include <functional>
@@ -26,7 +30,23 @@ typedef void* cudaStream_t;
 inline int cudaGetLastError() { return 0; }
 inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
 
+inline uint32_t __float_as_uint(float f) {
+  uint32_t u;
+  memcpy(&u, &f, 4);
+  return u;
+}
+inline float __uint_as_float(uint32_t u) {
+  float f;
+  memcpy(&f, &u, 4);
+  return f;
+}
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+template <class T>
+inline int cudaFuncSetAttribute(T*, cudaFuncAttribute, int) { return 0; }
+
+extern void* emu_dynamic_smem;
 void __syncwarp();
-void emu_launch(int grid, int block, std::function<void()> fn);
+inline void __syncthreads() { __syncwarp(); }
+void emu_launch(int grid, int block, int smem, std::function<void()> fn);
 // kernel<<<grid, block, smem, stream>>>(args...) is rewritten to this
-#define EMU_LAUNCH(G, T, K, ...) emu_launch(G, T, [&] { K(__VA_ARGS__); })
+#define EMU_LAUNCH(G, T, S, K, ...) emu_launch(G, T, S, [&] { K(__VA_ARGS__); })

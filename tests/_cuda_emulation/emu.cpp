@@ -7,6 +7,7 @@
 #include "cuda_runtime.h"
 
 thread_local emu_dim3 threadIdx, blockIdx, blockDim;
+void* emu_dynamic_smem = nullptr;
 
 namespace {
 std::mutex mtx;
@@ -26,7 +27,9 @@ void __syncwarp() {
   }
 }
 
-void emu_launch(int grid, int block, std::function<void()> fn) {
+void emu_launch(int grid, int block, int smem, std::function<void()> fn) {
+  std::vector<double> dynamic((smem + 7) / 8 + 1);   // 8-byte aligned
+  emu_dynamic_smem = dynamic.data();
   for (int b = 0; b < grid; ++b) {
     nthreads = block;
     waiting = 0;

@@ -3,7 +3,7 @@ versions.
 
 ``tests/_cuda_emulation`` compiles each ``csrc/*.cu`` with the host C++
 compiler (a launch runs its blocks in turn on std::threads,
-``__syncwarp()`` is a barrier) and routes the wrappers' CUDA branches to
+``__syncwarp()`` and ``__syncthreads()`` are a barrier) and routes the wrappers' CUDA branches to
 it, so each kernel's own arithmetic, indexing and warp synchronisation run
 here on CPU tensors.  Speed is measured only on the card (chip_smoke.py,
 tests/test_torch_kernels_gpu.py).  Inputs are the seeded recipes of
@@ -18,6 +18,8 @@ import torch
 
 from quad_periodic_mpc_tpu_torch.control.wbc import WBCGains
 from quad_periodic_mpc_tpu_torch.models import floating_base as fb
+from quad_periodic_mpc_tpu_torch.ops.cuda import admm_kernel as AK
+from quad_periodic_mpc_tpu_torch.ops.cuda import kf_kernel as FK
 from quad_periodic_mpc_tpu_torch.ops.cuda import kinematics_kernel as KK
 from quad_periodic_mpc_tpu_torch.ops.cuda import plant_kernel as PK
 from quad_periodic_mpc_tpu_torch.ops.cuda import stagewise_kernel as SK
@@ -148,3 +150,55 @@ def test_srb_build_dump_kernel(emulated):
     for g, w, b in zip(got, SK.srb_assemble(*args, **kw), (sw.Ad, sw.Bd, sw.c)):
         assert _maxdiff(g, w) < 1e-6
         assert _maxdiff(g, b) < 1e-6
+
+
+@pytest.mark.parametrize("B", [1, 5, 64])
+def test_kf_kernel(emulated, B):
+    """Conditioned seeded states: KC.KF_TOL (x 5e-3, P 2e-4; the reasons are
+    stated there), and the kernel's and the plain version's x' within
+    KC.KF_COND_FACTOR * eps * cond(S) of float64 instance by instance.  One
+    launch per call."""
+    args = KC.kf_case(B, seed=B, device="cpu")
+    before = FK.LAUNCHES
+    got = FK._fused_kf_innovate_cuda(*args, dt=KC.KF_DT)
+    assert FK.LAUNCHES == before + 1
+    want = FK.fused_kf_innovate_reference(*args, dt=KC.KF_DT)
+    for g, w, name in zip(got, want, "xP"):
+        assert torch.isfinite(g).all()
+        assert _maxdiff(g, w) < KC.KF_TOL[name], name
+    for x_new in (got[0], want[0]):
+        assert float(KC.kf_x_error_over_conditioning(args, x_new).max()) < KC.KF_COND_FACTOR
+
+
+@pytest.mark.parametrize("ticks", [0, 3, 40])
+def test_kf_kernel_from_a_cold_start(emulated, ticks):
+    """States from inside and after the start-up transient (P0 = 100 I):
+    KC.KF_TOL_TRANSIENT (x 2e-3, P 2e-2), the looser gate that kernel_cases
+    explains."""
+    args = KC.kf_transient_case(6, ticks=ticks, seed=ticks, device="cpu")
+    got = FK._fused_kf_innovate_cuda(*args, dt=KC.KF_DT)
+    want = FK.fused_kf_innovate_reference(*args, dt=KC.KF_DT)
+    for g, w, name in zip(got, want, "xP"):
+        assert _maxdiff(g, w) < KC.KF_TOL_TRANSIENT[name], name
+
+
+@pytest.mark.parametrize("B,h,iters,warm,kinv_bf16", [
+    (3, 10, 30, False, False), (3, 10, 30, False, True), (2, 16, 40, True, False),
+    (2, 16, 40, True, True), (1, 10, 30, True, False), (1, 1, 10, False, False),
+    (1, 20, 30, True, False), (1, 28, 30, True, True)])
+def test_admm_kernel(emulated, B, h, iters, warm, kinv_bf16):
+    """Both storage variants, zero and non-zero starts, the main path's
+    horizon, a ragged one, h = 1, and the two horizons past the resident
+    sizes (h = 20 in float32, h = 28 in bfloat16: K^{-1} read from device
+    memory every iteration): KC.admm_tol(h) (x and z 2e-4 h, y 1e-5).  The
+    kernel's hand-written bfloat16 rounding is the plain version's
+    ``.to(bfloat16)``.  One launch per call."""
+    args = KC.admm_case(B, h, seed=h + B, device="cpu", warm=warm)
+    before = AK.LAUNCHES
+    got = AK._fused_admm_iterations_cuda(*args, iters=iters, kinv_bf16=kinv_bf16)
+    assert AK.LAUNCHES == before + 1
+    want = AK.fused_admm_iterations_reference(*args, iters=iters, kinv_bf16=kinv_bf16)
+    for g, w, name in zip(got, want, "xzy"):
+        assert torch.isfinite(g).all()
+        assert _maxdiff(g, w) < KC.admm_tol(h)[name], name
+    assert AK.kinv_resident(12 * h, 20 * h, kinv_bf16) == (h < (28 if kinv_bf16 else 20))

@@ -94,10 +94,11 @@ def test_config_defaults_equal_reference(name):
 
 @pytest.mark.parametrize("module,name", [
     ("models.floating_base", "A1ModelParams"), ("sim.articulated_sim", "ContactParams"),
-    ("control.wbc", "WBCGains")])
+    ("control.wbc", "WBCGains"), ("estimation.kf", "KFParams")])
 def test_slice2_defaults_equal_reference(module, name):
-    """The copied dataclasses of the torque tick, field by field (the
-    PDIPConfig the WBC and the full stack use is checked above)."""
+    """The copied dataclasses of the torque tick and of the Kalman filter,
+    field by field (the PDIPConfig the WBC and the full stack use is checked
+    above)."""
     import importlib
 
     ref = getattr(importlib.import_module(f"quad_periodic_mpc_tpu.{module}"), name)()
@@ -212,6 +213,19 @@ def test_spd_inverse_matches(n):
     A = rng.normal(size=(4, n, n))
     M = A @ np.swapaxes(A, -1, -2) + n * np.eye(n)
     close(t_linalg.spd_inverse(t(M)), j_linalg.spd_inverse(j(M)), 1e-7, 1e-5)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 7, 12, 28])
+def test_spd_inverse_sym_matches(n):
+    """The upper-triangle form of the same recursion: the reference's
+    spd_inverse to rtol 1e-5 on a condition-~100 matrix (reordered sums),
+    symmetric to rounding, over any leading dims."""
+    rng = np.random.default_rng(40 + n)
+    A = rng.normal(size=(2, 3, n, n))
+    M = A @ np.swapaxes(A, -1, -2) + n * np.eye(n)
+    got = t_linalg.spd_inverse_sym(t(M))
+    close(got, j_linalg.spd_inverse(j(M)), 1e-7, 1e-5)
+    close(got, got.transpose(-1, -2), 1e-7, 1e-5)
 
 
 def test_spd_solve_and_block_diag_match():

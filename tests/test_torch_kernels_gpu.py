@@ -12,6 +12,8 @@ import torch
 
 from quad_periodic_mpc_tpu_torch.control.wbc import WBCGains
 from quad_periodic_mpc_tpu_torch.models import floating_base as fb
+from quad_periodic_mpc_tpu_torch.ops.cuda import admm_kernel as AK
+from quad_periodic_mpc_tpu_torch.ops.cuda import kf_kernel as FK
 from quad_periodic_mpc_tpu_torch.ops.cuda import kinematics_kernel as KK
 from quad_periodic_mpc_tpu_torch.ops.cuda import plant_kernel as PK
 from quad_periodic_mpc_tpu_torch.ops.cuda import stagewise_kernel as SK
@@ -235,3 +237,76 @@ def test_plant_kernel_matches_plain_version(cuda, B):
                       (pb.anchor, pa.anchor, 1e-5)):
         assert _maxdiff(g, w) < tol
     assert torch.equal(pb.in_contact, pa.in_contact)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 37, 2048])
+def test_kf_kernel_matches_plain_version(cuda, B):
+    """Conditioned seeded states: KC.KF_TOL (x 5e-3, P 2e-4: f32 sums in
+    another order; the reasons are stated there), and the kernel's and the
+    plain version's x' within KC.KF_COND_FACTOR * eps * cond(S) of float64
+    instance by instance.  One launch per call."""
+    args = KC.kf_case(B, seed=B, device=cuda)
+    before = FK.LAUNCHES
+    got = FK.fused_kf_innovate(*args, dt=KC.KF_DT)
+    torch.cuda.synchronize()
+    assert FK.LAUNCHES == before + 1
+    want = FK.fused_kf_innovate_reference(*args, dt=KC.KF_DT)
+    for g, w, name in zip(got, want, "xP"):
+        assert bool(torch.isfinite(g).all())
+        assert _maxdiff(g, w) < KC.KF_TOL[name], name
+    for x_new in (got[0], want[0]):
+        assert float(KC.kf_x_error_over_conditioning(args, x_new).max()) < KC.KF_COND_FACTOR
+
+
+@pytest.mark.gpu
+def test_kf_kernel_matches_plain_version_from_a_cold_start(cuda):
+    """Inputs at tick 3 of a cold start (P0 = 100 I): KC.KF_TOL_TRANSIENT
+    (x 2e-3, P 2e-2), the looser gate of the start-up transient."""
+    args = KC.kf_transient_case(256, ticks=3, device=cuda)
+    got = FK.fused_kf_innovate(*args, dt=KC.KF_DT)
+    want = FK.fused_kf_innovate_reference(*args, dt=KC.KF_DT)
+    for g, w, name in zip(got, want, "xP"):
+        assert _maxdiff(g, w) < KC.KF_TOL_TRANSIENT[name], name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,h,iters,warm,kinv_bf16", [
+    (2048, 10, 30, False, False), (2048, 10, 30, True, True), (37, 16, 40, True, False),
+    (37, 16, 40, False, True), (1, 10, 30, True, False), (5, 20, 30, True, False),
+    (5, 28, 30, True, True)])
+def test_admm_kernel_matches_plain_version(cuda, B, h, iters, warm, kinv_bf16):
+    """Both storage variants, zero and non-zero starts, resident horizons
+    and the two just past them: KC.admm_tol(h) (x and z 2e-4 h, y 1e-5).  One
+    launch per call."""
+    args = KC.admm_case(B, h, seed=h + B, device=cuda, warm=warm)
+    before = AK.LAUNCHES
+    got = AK.fused_admm_iterations(*args, iters=iters, kinv_bf16=kinv_bf16)
+    torch.cuda.synchronize()
+    assert AK.LAUNCHES == before + 1
+    want = AK.fused_admm_iterations_reference(*args, iters=iters, kinv_bf16=kinv_bf16)
+    for g, w, name in zip(got, want, "xzy"):
+        assert bool(torch.isfinite(g).all())
+        assert _maxdiff(g, w) < KC.admm_tol(h)[name], name
+
+
+@pytest.mark.gpu
+def test_kf_and_admm_wrappers_reject_float64(cuda):
+    """float64 CUDA tensors raise TypeError in both wrappers (there is no
+    plain version on the card); kf.update sends float64 to the dense chain
+    instead, whatever the backend."""
+    from quad_periodic_mpc_tpu_torch.estimation import kf
+
+    before = (FK.LAUNCHES, AK.LAUNCHES)
+    with pytest.raises(TypeError):
+        FK.fused_kf_innovate(*(a.double() for a in KC.kf_case(2, device=cuda)), dt=KC.KF_DT)
+    with pytest.raises(TypeError):
+        AK.fused_admm_iterations(*(a.double() for a in KC.admm_case(2, 4, device=cuda)),
+                                 iters=3)
+    st = kf.init((2,), torch.float64, cuda)
+    z = lambda *s: torch.zeros(2, *s, dtype=torch.float64, device=cuda)
+    eye = torch.eye(3, dtype=torch.float64, device=cuda).expand(2, 3, 3)
+    out = kf.update(st, z(3), eye, z(3), z(4, 3), z(4, 3), z(4) + 0.5, kf.KFParams(),
+                    backend="pallas")
+    assert out.P.dtype == torch.float64 and out.P.is_cuda
+    assert (FK.LAUNCHES, AK.LAUNCHES) == before

@@ -157,17 +157,14 @@ def test_warm_solve_passes_kkt_gates():
     assert float(res["dual"].max()) < 1e-3
 
 
-@pytest.mark.parametrize("what", ["condensed", "pdip", "ls6", "tunable", "faithful"])
+@pytest.mark.parametrize("what", ["ls6", "tunable", "faithful"])
 def test_unported_branches_raise(what):
-    """Branches outside this slice raise instead of falling back."""
+    """Branches that are not ported raise instead of falling back (the
+    condensed ADMM and the PDIP run: tests/test_torch_mpc_condensed.py)."""
     plant, ctrl, cmd, gait, dist = _port(*_jax_setup(prefill_estimator=False))
     mt, lt, et, st = _configs()[1]
     kw = {}
-    if what == "condensed":
-        st = tc.ADMMConfig(iterations=ITERS, backend="pallas")
-    elif what == "pdip":
-        st = tc.PDIPConfig()
-    elif what == "ls6":
+    if what == "ls6":
         et = tc.EstimatorConfig(mode="ls6")
     elif what == "tunable":
         kw["tunable"] = object()
