@@ -12,8 +12,9 @@ result line) when it fails:
    (one nvcc per source, all started together), printing ptxas' registers
    and spills;
 2. hold each kernel against its plain PyTorch version on the card with the
-   tolerances stated below, and time both: the stagewise solve at the
-   main path's shapes, a ragged batch and a long horizon; the torque
+   tolerances stated below, and time both: the fused-build stagewise solve
+   at every (B, h, ADMM iterations) at which the driven paths launch it,
+   each timed, and at ragged shapes (B = 1, 133, 1000; h = 48); the torque
    tick's model evaluation, contact kinematics, WBC and plant substeps at
    B = 256 (the full stack's batch), 1 and 37, from seeded numpy inputs;
 3. drive the slice-1 main path: the walking trot of bench.py (vx = 0.3,
@@ -36,7 +37,9 @@ result line) when it fails:
    tick alone, over two-period chains (bench.py's b=1 lines);
 6. hold the caller-built stagewise kernels against their plain versions:
    fused_stagewise_solve (per-step c at the predictive path's shape, a
-   ragged long-horizon batch with a shared c, dense Ad), the streamed
+   ragged long-horizon batch with a shared c, dense Ad, and a dense-Ad case
+   whose warm Newton-Schulz seeds fail the gate, so that the cold restart
+   runs), the streamed
    solve at h = 128 and 72 (with the KKT residuals of both answers), and
    srb_build_dump, also against the independent problem build;
 7. drive the slice-3 paths through mpc_step and srb_sim.step, the same
@@ -91,8 +94,14 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 BATCH, HORIZON, ADMM_ITERS, VX = 2048, 10, 30, 0.3
 WARM_PERIODS, TIMED_PERIODS, ROLLOUT_PERIODS = 3, 10, 3
-# kernel vs plain version: (B, h); the first is the main path's shape
-KERNEL_CASES = ((BATCH, HORIZON), (1000, HORIZON), (256, 48))
+# the fused-build kernel vs its plain version at every (B, h, ADMM
+# iterations) of the paths that launch it, each timed: the main path's
+# first, then the h = 16 / 32 / 64 lines' and the full stack's; then
+# untimed ragged batches (B = 133 is one block more than the card's SMs)
+SRB_SHAPES = ((BATCH, HORIZON, ADMM_ITERS, "main path"), (1024, 16, 40, "line h=16"),
+              (512, 32, 50, "line h=32"), (256, 64, 50, "line h=64"),
+              (256, HORIZON, ADMM_ITERS, "full stack"))
+KERNEL_CASES = ((1000, HORIZON), (256, 48), (133, HORIZON), (1, HORIZON))
 # U and z are forces (~100 N): FMA contraction and summation order differ
 # between the kernel and the plain version's batched products, amplified
 # through 30 ADMM sweeps (this is the gate the JAX kernel is held to
@@ -440,22 +449,25 @@ def kernel_ms(fn, reps: int, symbol: str) -> tuple[float, float]:
 
 
 def compare_kernels(device, card: str) -> dict:
+    """The fused-build kernel against its plain version at SRB_SHAPES, each
+    timed (its record's "shapes"; launches are filled in from the paths),
+    and at KERNEL_CASES.  Returns its record."""
     import torch
 
     from quad_periodic_mpc_tpu_torch.ops.cuda import stagewise_kernel as SK
     from quad_periodic_mpc_tpu_torch.testing import kernel_cases
 
-    record = None
-    for i, (B, h) in enumerate(KERNEL_CASES):
-        args, kw = kernel_cases.stagewise_case(B, h, seed=100 + i, device=device,
-                                               iters=ADMM_ITERS)
+    shapes, plain_ms = [], None
+    cases = [*SRB_SHAPES, *((B, h, ADMM_ITERS, None) for B, h in KERNEL_CASES)]
+    for i, (B, h, iters, path) in enumerate(cases):
+        args, kw = kernel_cases.stagewise_case(B, h, seed=100 + i, device=device, iters=iters)
         got = SK.fused_stagewise_solve_srb(*args, **kw)
         torch.cuda.synchronize()
         stats = {}
         want = SK.fused_stagewise_solve_srb_reference(*args, **kw, stats=stats)
         errs = {n: float((g - w).abs().max()) for n, g, w in zip("Uzy", got, want)}
         finite = all(bool(torch.isfinite(g).all()) for g in got)
-        print(f"[kernel] stagewise_srb B={B} h={h}: max|dU|={errs['U']:.3g} "
+        print(f"[kernel] stagewise_srb B={B} h={h} ADMM-{iters}: max|dU|={errs['U']:.3g} "
               f"(tol {TOL['U']}), max|dz|={errs['z']:.3g} (tol {TOL['z']}), "
               f"max|dy|={errs['y']:.3g} (tol {TOL['y']}), rescued stages "
               f"{stats['rescued']}")
@@ -463,28 +475,33 @@ def compare_kernels(device, card: str) -> dict:
         for n in "Uzy":
             check(errs[n] <= TOL[n], f"kernel disagrees with plain version: "
                   f"max|d{n}|={errs[n]} > {TOL[n]} at B={B} h={h}")
-        if (B, h) == (BATCH, HORIZON):
-            ms, call_ms = kernel_ms(lambda: SK.fused_stagewise_solve_srb(*args, **kw), 20,
-                                    "stagewise_srb_kernel")
-            plain_ms = time_ms(
-                lambda: SK.fused_stagewise_solve_srb_reference(*args, **kw), 2)
-            flops = solve_flops(B, h, ADMM_ITERS, kw["ns_it"],
-                                SK.ns_warm_rounds(kw["ns_it"]), stats["rescued"])
-            nbytes = solve_bytes(B, h)
-            bound_ms, bound_by = bound(flops, nbytes)
-            record = {
-                "name": "fused_stagewise_solve_srb", "route": "cuda",
-                "source": "quad_periodic_mpc_tpu_torch/csrc/stagewise_srb.cu",
-                "replaces": "quad_periodic_mpc_tpu/ops/pallas/stagewise_kernel.py:753",
-                "launches": 0, "max_abs_err": max(errs.values()),
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": None,
-            }
-            print(f"[kernel] B={B} h={h}: kernel {ms:.3f} ms on the device "
-                  f"({call_ms:.3f} ms per call), plain version "
-                  f"{plain_ms:.1f} ms, bound {record['bound_ms']:.4f} ms "
-                  f"({flops:.3e} flop, {nbytes} B) on {card}")
-    return record
+        if path is None:
+            continue
+        ms, call_ms = kernel_ms(lambda: SK.fused_stagewise_solve_srb(*args, **kw), 20,
+                                "stagewise_srb_kernel")
+        flops = solve_flops(B, h, iters, kw["ns_it"], SK.ns_warm_rounds(kw["ns_it"]),
+                            stats["rescued"])
+        nbytes = solve_bytes(B, h)
+        bound_ms, bound_by = bound(flops, nbytes)
+        shapes.append({"path": path, "B": B, "h": h, "iters": iters, "launches": 0,
+                       "ms": ms, "call_ms": call_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "max_abs_err": max(errs.values())})
+        plain = ""
+        if plain_ms is None:                        # the main path's shape
+            plain_ms = time_ms(lambda: SK.fused_stagewise_solve_srb_reference(*args, **kw), 2)
+            plain = f", plain version {plain_ms:.1f} ms"
+        print(f"[kernel] B={B} h={h} ADMM-{iters} ({path}): kernel {ms:.3f} ms on the "
+              f"device ({call_ms:.3f} ms per call){plain}, bound {bound_ms:.4f} ms "
+              f"({flops:.3e} flop, {nbytes} B) on {card}")
+    main = shapes[0]
+    return {
+        "name": "fused_stagewise_solve_srb", "route": "cuda",
+        "source": "quad_periodic_mpc_tpu_torch/csrc/stagewise_srb.cu",
+        "replaces": "quad_periodic_mpc_tpu/ops/pallas/stagewise_kernel.py:753",
+        "launches": 0, "max_abs_err": max(r["max_abs_err"] for r in shapes),
+        "ms": main["ms"], "plain_ms": plain_ms, "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": None, "shapes": shapes,
+    }
 
 
 def _maxdiff(a, b) -> float:
@@ -514,10 +531,14 @@ def compare_solve_kernels(device, card: str) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
         return bound_ms, bound_by
 
-    def solve_case(name, fn, plain, tol, B, h, iters, per_step_c, dense_ad, seed, kkt):
-        args, kw, sw = KC.solve_case(B, h, seed=seed, device=device, iters=iters,
-                                     per_step_c=per_step_c, dense_ad=dense_ad,
-                                     with_problem=True)
+    def solve_case(name, fn, plain, tol, B, h, iters, per_step_c, dense_ad, seed, kkt,
+                   rescue=False):
+        if rescue:          # dense Ad whose warm NS seeds fail the gate
+            (args, kw), sw = KC.rescue_case(B, h, seed=seed, device=device, iters=iters), None
+        else:
+            args, kw, sw = KC.solve_case(B, h, seed=seed, device=device, iters=iters,
+                                         per_step_c=per_step_c, dense_ad=dense_ad,
+                                         with_problem=True)
         if name == "fused_stagewise_solve":
             kw["srb_ad"] = not dense_ad
         got = fn(*args, **kw)
@@ -527,7 +548,7 @@ def compare_solve_kernels(device, card: str) -> dict:
         errs = {n: _maxdiff(g, w) for n, g, w in zip("Uzy", got, want)}
         what = (f"{name} B={B} h={h} ADMM-{iters} "
                 f"{'per-step' if per_step_c else 'shared'} c"
-                f"{', dense Ad' if dense_ad else ''}")
+                f"{', dense Ad' if dense_ad else ''}{', rescue case' if rescue else ''}")
         print(f"[kernel] {what}: " + ", ".join(
             f"max|d{n}|={errs[n]:.3g} (tol {tol[n]})" for n in "Uzy")
             + f", rescued stages {stats['rescued']}")
@@ -535,6 +556,7 @@ def compare_solve_kernels(device, card: str) -> dict:
         for n in "Uzy":
             check(errs[n] <= tol[n], f"{what} disagrees with its plain version: "
                   f"max|d{n}|={errs[n]} > {tol[n]}")
+        check(not rescue or stats["rescued"] > 0, f"{what}: no stage was rescued")
         if kkt:
             res_k, res_p = (qp_stagewise.kkt_residuals(sw, *out) for out in (got, want))
             for r in ("primal", "dual"):
@@ -554,6 +576,9 @@ def compare_solve_kernels(device, card: str) -> dict:
             name, SK.fused_stagewise_solve, SK.fused_stagewise_solve_reference, TOL,
             B, h, ADMM_ITERS, per_step_c, dense_ad, seed, kkt=False)
         worst = max(worst, err)
+    worst = max(worst, solve_case(
+        name, SK.fused_stagewise_solve, SK.fused_stagewise_solve_reference, TOL, 5, HORIZON,
+        ADMM_ITERS, False, True, 7, kkt=False, rescue=True)[3])
     ms, call_ms = kernel_ms(lambda: SK.fused_stagewise_solve(*args, **kw), 20,
                             "stagewise_solve_kernel")
     plain_ms = time_ms(lambda: SK.fused_stagewise_solve_reference(*args, **kw), 2)
@@ -1485,11 +1510,15 @@ def main() -> int:
         record = compare_kernels(device, card)
         tick_records = compare_tick_kernels(device, card)
         counts = main_path(device, card)
+        srb_shapes = {s["path"]: s for s in record["shapes"]}
         record["launches"] = counts["fused_stagewise_solve_srb"]
+        srb_shapes["main path"]["launches"] = record["launches"]
         dumps = counts["srb_build_dump"]
         for name, n in full_stack_path(device, card).items():
             if name in tick_records:
                 tick_records[name]["launches"] = n
+            if name == "fused_stagewise_solve_srb":
+                srb_shapes["full stack"]["launches"] = n
         single_robot(device, card)
         solve_records = compare_solve_kernels(device, card)
         counts = walking_line(device, card, "predictive", BATCH, HORIZON, ADMM_ITERS,
@@ -1501,9 +1530,12 @@ def main() -> int:
             dumps += counts["srb_build_dump"]
             if line[-1] in solve_records:
                 solve_records[line[-1]]["launches"] = counts[line[-1]]
+            if f"line {line[0]}" in srb_shapes:
+                srb_shapes[f"line {line[0]}"]["launches"] = counts["fused_stagewise_solve_srb"]
         solve_records["srb_build_dump"]["launches"] = dumps
-        for rec in solve_records.values():
-            check(rec["launches"] > 0, f"{rec['name']} was launched on no driven path")
+        for rec in [*solve_records.values(), *record["shapes"]]:
+            check(rec["launches"] > 0, f"{rec.get('name', rec.get('path'))} was launched "
+                  "on no driven path")
         slice4_records = slice4(device, card)
         if "jax" in sys.modules or "quad_periodic_mpc_tpu" in sys.modules:
             raise SmokeFailure("JAX or the JAX package was imported")

@@ -15,32 +15,25 @@
 // so that a caller can hold the in-kernel build against the independent
 // problem build.
 //
-// Decomposition: one thread per instance.  The TPU kernel put 128
-// instances on the lanes of a vector register and walked chunks in a grid;
-// here the kernel masks b < B itself and needs no padding.  Per-stage gains
-// (K, Quu^{-1}, P c, v, r_lin, q) and the Riccati carry P live in device
-// scratch allocated by the wrapper, laid out instance-minor
-// ([stage][row][col][B]) so neighbouring threads touch neighbouring words,
-// as neighbouring lanes did.
+// What bounds the solve on this card, and what the design does about it:
+// the latency of its chain of h * (1 + 2 * iters) dependent stage steps
+// (610 at h = 10, ADMM-30), not bytes (about 6.5 KB of inputs and outputs
+// per instance) and not the FMA rate.  One warp per instance, one 32-thread
+// block each (B = 2048 is one wave of 16 warps an SM), with the lanes over
+// the entries of each block product, the working set in shared memory and
+// the gains streamed through a cp.async double buffer: stagewise_body.cuh
+// says how.  Lane 0 runs the one-thread srb_assemble into shared memory, a
+// few hundred FMAs once per solve.
 //
-// What bounds them on this card.  The solve at h = 10 is a latency-bound
-// serial chain of about h * (1 + 2 * iters) = 610 dependent stage steps of
-// small FMAs per instance (12x12 and 12x13 block products), not memory
-// bandwidth (about 6.5 KB of inputs and outputs per instance).  B = 2048
-// fills only 16 blocks of 128 threads on the 132 SMs, one warp per SM
-// scheduler, so nothing hides the local-memory latency of each FMA.  This
-// simple design does nothing about that beyond keeping the whole solve in
-// one launch; spreading one instance over a warp (lanes over the rows of
-// each block product) with the gains in shared memory is the next step.
 // The dump is bound by bytes: 28 floats in and 338 out per instance against
-// a few hundred FMAs.  Each thread writes its instance's 338 contiguous
-// floats, so a warp's stores are strided by 1352 B; staging a block's
-// outputs through shared memory would coalesce them, which an audit hook
-// does not need.
+// a few hundred FMAs.  It keeps one thread per instance: each thread writes
+// its instance's 338 contiguous floats, so a warp's stores are strided by
+// 1352 B; staging a block's outputs through shared memory would coalesce
+// them, which an audit hook does not need.
 
 #include "stagewise_body.cuh"
 
-__global__ void __launch_bounds__(128) stagewise_srb_kernel(
+__global__ void __launch_bounds__(32, 16) stagewise_srb_kernel(
     const float* __restrict__ R_in, const float* __restrict__ rf_in,
     const float* __restrict__ xd_in, const float* __restrict__ fe_in,
     const float* __restrict__ x0_in, const float* __restrict__ xref,
@@ -49,20 +42,17 @@ __global__ void __launch_bounds__(128) stagewise_srb_kernel(
     const float* __restrict__ y0, const float* __restrict__ Qv,
     const float* __restrict__ Reff, const float* __restrict__ Fm,
     float* __restrict__ U, float* __restrict__ Z, float* __restrict__ Y,
-    float* K_s, float* Minv_s, float* Pc_s, float* v_s, float* r_s,
-    float* q_s, float* P_s, Params p) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= p.B) return;
-  const int h = p.h;
-
-  float N[NX * NX], Bd[NX * NU], cv[NX];
-  srb_assemble(R_in + (size_t)b * 9, rf_in + (size_t)b * NU, xd_in[b],
-               fe_in + (size_t)b * 6, p, N, Bd, cv);
-  const size_t hb = (size_t)b * h;
-  solve_body<true, false>(
-      b, N, Bd, cv, nullptr, x0_in + (size_t)b * NX, xref + hb * NX, l_in + hb * NC,
-      u_in + hb * NC, U0 + hb * NU, z0 + hb * NC, y0 + hb * NC, Qv, Reff, Fm,
-      U + hb * NU, Z + hb * NC, Y + hb * NC, K_s, Minv_s, Pc_s, v_s, r_s, q_s, P_s, p);
+    float* gains, Params p) {
+  __shared__ Smem sm;
+  const int b = blockIdx.x;
+  if (wl::lane() == 0)
+    srb_assemble(R_in + (size_t)b * 9, rf_in + (size_t)b * NU, xd_in[b],
+                 fe_in + (size_t)b * 6, p, sm.A, sm.Bd, sm.cv);
+  const size_t hb = (size_t)b * p.h;
+  const Io io{nullptr, x0_in + (size_t)b * NX, xref + hb * NX, l_in + hb * NC,
+              u_in + hb * NC, U0 + hb * NU, z0 + hb * NC, y0 + hb * NC, Qv, Reff, Fm,
+              U + hb * NU, Z + hb * NC, Y + hb * NC, gains + hb * Rec<false>::kSize};
+  solve_body<true, false>(sm, io, p);
 }
 
 __global__ void __launch_bounds__(128) srb_build_dump_kernel(
@@ -88,13 +78,9 @@ extern "C" int stagewise_srb_launch(
     const float* x0, const float* xref, const float* l, const float* u,
     const float* U0, const float* z0, const float* y0, const float* Q,
     const float* Reff, const float* F, float* U, float* Z, float* Y,
-    float* K_s, float* Minv_s, float* Pc_s, float* v_s, float* r_s,
-    float* q_s, float* P_s, Params p, void* stream) {
-  const int threads = 128;
-  const int blocks = (p.B + threads - 1) / threads;
-  stagewise_srb_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      R, rf, xd, fe, x0, xref, l, u, U0, z0, y0, Q, Reff, F, U, Z, Y,
-      K_s, Minv_s, Pc_s, v_s, r_s, q_s, P_s, p);
+    float* gains, Params p, void* stream) {
+  stagewise_srb_kernel<<<p.B, 32, 0, (cudaStream_t)stream>>>(
+      R, rf, xd, fe, x0, xref, l, u, U0, z0, y0, Q, Reff, F, U, Z, Y, gains, p);
   return (int)cudaGetLastError();
 }
 

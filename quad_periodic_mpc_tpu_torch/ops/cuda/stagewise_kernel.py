@@ -5,9 +5,9 @@ Four entry points, one for each function of
 ``quad_periodic_mpc_tpu/ops/pallas/stagewise_kernel.py`` that reaches a
 TPU kernel.  The sources are under ``quad_periodic_mpc_tpu_torch/csrc``;
 each one's header note says what it computes, what bounds it on an H100
-and how the design is laid out (one thread per instance, gains in
-instance-minor device scratch, the solve itself shared through
-``stagewise_body.cuh``).
+and how the design is laid out (one warp per instance with its working set
+in shared memory, the per-stage gains in device scratch laid out by
+instance, the solve itself shared through ``stagewise_body.cuh``).
 
 - ``fused_stagewise_solve_srb`` (``stagewise_srb.cu``): the dynamics are
   assembled in the kernel from (R, r_feet, x_drag, f_est).
@@ -48,7 +48,6 @@ from quad_periodic_mpc_tpu_torch.ops.rotations import skew
 NX = 13
 NU = 12
 NC = 20
-NPACK = NU * (NU + 1) // 2          # upper triangle of Quu^{-1}
 STREAM_BLOCK = 8                    # the reference's stage-block granularity
 SOURCE = "stagewise_srb.cu"
 SOURCE_SOLVE = "stagewise_solve.cu"
@@ -57,6 +56,9 @@ SOURCE_STREAM = "stagewise_stream.cu"
 # structured Ad = I + N: live rows / columns of N (reference _N_ROWS/_N_COLS)
 N_ROWS = (0, 1, 2, 3, 4, 5, 11)
 N_COLS = (6, 7, 8, 9, 10, 11, 12)
+# floats of one stage's gain record, resident (False) and streamed (True):
+# Rec<false>::kSize and Rec<true>::kSize in csrc/stagewise_body.cuh
+GAIN_RECORD = {False: 360, True: 268}
 
 LAUNCHES = {"fused_stagewise_solve_srb": 0, "fused_stagewise_solve": 0,
             "fused_stagewise_solve_stream": 0, "srb_build_dump": 0}
@@ -458,25 +460,17 @@ def srb_build_dump(R, r_feet, x_drag, f_est, dt: float = 0.026, mass: float = 12
                      (R, r_feet, x_drag, f_est), dict(dt=dt, mass=mass, i_inv_diag=i_inv_diag))
 
 
-def _gain_scratch(Bn: int, h: int, minv: int, f32: dict) -> list:
-    """Per-stage gains, instance-minor ([stage][row][col][B]): K, Quu^{-1}
-    (``minv`` entries per stage), P c, v = Pc + p; and the Riccati carry."""
-    return [
-        torch.empty(h * NU * NX * Bn, **f32),   # K
-        torch.empty(h * minv * Bn, **f32),      # Quu^{-1}
-        torch.empty(h * NX * Bn, **f32),        # P c
-        torch.empty(h * NX * Bn, **f32),        # v = Pc + p
-        torch.empty(NX * NX * Bn, **f32),       # Riccati carry P
-    ]
+def _gain_scratch(Bn: int, h: int, stream: bool, f32: dict) -> torch.Tensor:
+    """Per-stage gains, laid out by instance ([B][h][record]): K, P c,
+    Quu^{-1} (packed when ``stream``), v = Pc + p, and in the resident
+    layout q and r_lin (the record of ``Rec`` in stagewise_body.cuh)."""
+    return torch.empty(Bn * h * GAIN_RECORD[stream], **f32)
 
 
-def _resident_buffers(Bn: int, h: int, f32: dict) -> tuple[list, list]:
-    """The resident kernels' outputs (U, z, y) and their scratch in launch
-    order: the gains, with the stored r_lin and q_stage before the carry."""
+def _resident_buffers(Bn: int, h: int, f32: dict) -> tuple[list, torch.Tensor]:
+    """The resident kernels' outputs (U, z, y) and their gain scratch."""
     out = [torch.empty(Bn, h, r, **f32) for r in (NU, NC, NC)]
-    K, Minv, Pc, v, P = _gain_scratch(Bn, h, NU * NU, f32)
-    r_lin, q_stage = torch.empty(h * NU * Bn, **f32), torch.empty(h * NX * Bn, **f32)
-    return out, [K, Minv, Pc, v, r_lin, q_stage, P]
+    return out, _gain_scratch(Bn, h, False, f32)
 
 
 def _fused_stagewise_solve_srb_cuda(
@@ -487,13 +481,13 @@ def _fused_stagewise_solve_srb_cuda(
     Bn, h = x_ref.shape[0], x_ref.shape[1]
     device = x0.device
     with torch.cuda.device(device):
-        out, scratch = _resident_buffers(Bn, h, dict(dtype=torch.float32, device=device))
+        out, gains = _resident_buffers(Bn, h, dict(dtype=torch.float32, device=device))
         d = [float(v) for v in i_inv_diag]
         params = _params(Bn, h, iters, rho, over_relax, ns_it, srb_ad=1, c_per_step=0,
                          d0=d[0], d1=d[1], d2=d[2], **_constants(float(dt), float(mass)))
         build.launch(SOURCE, "stagewise_srb_launch",
                      [R, r_feet, x_drag, f_est, x0, x_ref, l, u, U0, z0, y0, Q, R_eff,
-                      F, *out, *scratch], params, device)
+                      F, *out, gains], params, device)
     LAUNCHES["fused_stagewise_solve_srb"] += 1
     return tuple(out)
 
@@ -506,13 +500,13 @@ def _fused_stagewise_solve_cuda(
     Bn, h = x_ref.shape[0], x_ref.shape[1]
     device = x0.device
     with torch.cuda.device(device):
-        out, scratch = _resident_buffers(Bn, h, dict(dtype=torch.float32, device=device))
+        out, gains = _resident_buffers(Bn, h, dict(dtype=torch.float32, device=device))
         params = _params(Bn, h, iters, rho, over_relax, ns_it, srb_ad=int(bool(srb_ad)),
                          c_per_step=int(c.ndim == 3))
         source, fn = ((SOURCE_SOLVE, "stagewise_solve_launch") if srb_ad
                       else (SOURCE_SOLVE_DENSE, "stagewise_solve_dense_launch"))
         build.launch(source, fn,
-                     [Ad, Bd, c, x0, x_ref, l, u, U0, z0, y0, Q, R_eff, F, *out, *scratch],
+                     [Ad, Bd, c, x0, x_ref, l, u, U0, z0, y0, Q, R_eff, F, *out, gains],
                      params, device)
     LAUNCHES["fused_stagewise_solve"] += 1
     return tuple(out)
@@ -529,11 +523,11 @@ def _fused_stagewise_solve_stream_cuda(
     with torch.cuda.device(device):
         f32 = dict(dtype=torch.float32, device=device)
         U, z, y = U0.clone(), z0.clone(), y0.clone()
-        K, Minv, Pc, v, P = _gain_scratch(Bn, h, NPACK, f32)
+        gains = _gain_scratch(Bn, h, True, f32)
         params = _params(Bn, h, iters, rho, over_relax, ns_it, srb_ad=1,
                          c_per_step=int(c.ndim == 3))
         build.launch(SOURCE_STREAM, "stagewise_stream_launch",
-                     [Ad, Bd, c, x0, x_ref, l, u, Q, R_eff, F, U, z, y, K, Minv, Pc, v, P],
+                     [Ad, Bd, c, x0, x_ref, l, u, Q, R_eff, F, U, z, y, gains],
                      params, device)
     LAUNCHES["fused_stagewise_solve_stream"] += 1
     return U, z, y

@@ -23,7 +23,7 @@ extern thread_local emu_dim3 threadIdx, blockIdx, blockDim;
 #define __global__
 #define __constant__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __shared__ static
 
 typedef void* cudaStream_t;

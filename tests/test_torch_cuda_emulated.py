@@ -120,6 +120,21 @@ def test_stagewise_solve_kernel(emulated, variant):
         assert _maxdiff(g, w) < tol
 
 
+def test_stagewise_solve_kernel_rescue(emulated):
+    """Dense Ad whose warm Newton-Schulz seeds fail the gate
+    (KC.rescue_case): the cold restart runs on every lane of the instance's
+    warp, and the kernel still meets U and z 2e-3, y 1e-5."""
+    args, kw = KC.rescue_case(5, 8, seed=7, device="cpu")
+    kw.update(over_relax=1.6, srb_ad=False)
+    got = SK._fused_stagewise_solve_cuda(*args, **kw)
+    stats = {}
+    want = SK.fused_stagewise_solve_reference(*args, **kw, stats=stats)
+    assert stats["rescued"] > 0
+    for g, w, tol in zip(got, want, (2e-3, 2e-3, 1e-5)):
+        assert torch.isfinite(g).all()
+        assert _maxdiff(g, w) < tol
+
+
 @pytest.mark.parametrize("per_step_c", [False, True])
 def test_stagewise_stream_kernel(emulated, per_step_c):
     """The streamed solve at h = 16 from a warm start (its in-place

@@ -30,11 +30,13 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,h", [(37, 10), (300, 48)])
+@pytest.mark.parametrize("B,h", [(37, 10), (300, 48), (1, 10), (133, 10), (256, 64)])
 def test_stagewise_kernel_matches_plain_version(cuda, B, h):
     """U and z to atol 2e-3 (forces ~100 N; FMA contraction and summation
     order differ, amplified through 30 ADMM sweeps); y to 1e-5
-    (rho-scaled).  One launch per call."""
+    (rho-scaled).  One block per instance: B = 1, and B = 133, one block
+    more than the card's SMs; h = 64 is the longest line of the fused
+    build.  One launch per call."""
     args, kw = KC.stagewise_case(B, h, seed=B, device=cuda)
     before = SK.LAUNCHES["fused_stagewise_solve_srb"]
     got = SK.fused_stagewise_solve_srb(*args, **kw)
@@ -68,7 +70,7 @@ def _maxdiff(a, b):
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,h,per_step_c,dense_ad", [
     (37, 10, True, False), (300, 48, False, False), (37, 10, False, True),
-    (130, 64, True, False)])
+    (130, 64, True, False), (1, 10, True, False), (133, 10, False, True)])
 def test_stagewise_solve_kernel_matches_plain_version(cuda, B, h, per_step_c, dense_ad):
     """fused_stagewise_solve on caller-built dynamics (per-step and shared
     c, structured and dense Ad, the longest resident horizon): U and z 2e-3,
@@ -87,7 +89,25 @@ def test_stagewise_solve_kernel_matches_plain_version(cuda, B, h, per_step_c, de
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,h,per_step_c", [(5, 72, True), (40, 128, False)])
+def test_stagewise_solve_kernel_rescue_matches_plain_version(cuda):
+    """Dense Ad whose warm Newton-Schulz seeds fail the gate
+    (KC.rescue_case): the plain version restarts some stages cold, and the
+    kernel, whose warp takes the same per-instance branch, meets U and z
+    2e-3, y 1e-5."""
+    args, kw = KC.rescue_case(5, 10, seed=7, device=cuda)
+    got = SK.fused_stagewise_solve(*args, srb_ad=False, **kw)
+    torch.cuda.synchronize()
+    stats = {}
+    want = SK.fused_stagewise_solve_reference(*args, srb_ad=False, **kw, stats=stats)
+    assert stats["rescued"] > 0
+    for g, w, tol in zip(got, want, (2e-3, 2e-3, 1e-5)):
+        assert bool(torch.isfinite(g).all())
+        assert _maxdiff(g, w) < tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,h,per_step_c", [(5, 72, True), (40, 128, False), (1, 72, False),
+                                            (128, 128, False), (133, 72, True)])
 def test_stagewise_stream_kernel_matches_plain_version(cuda, B, h, per_step_c):
     """fused_stagewise_solve_stream from a warm start, 50 sweeps: U and z
     5e-3 (roundoff between kernel and plain version grows with the chain:
