@@ -16,7 +16,8 @@ result line) when it fails:
    at every (B, h, ADMM iterations) at which the driven paths launch it,
    each timed, and at ragged shapes (B = 1, 133, 1000; h = 48); the torque
    tick's model evaluation, contact kinematics, WBC and plant substeps at
-   B = 256 (the full stack's batch), 1 and 37, from seeded numpy inputs;
+   B = 256 (the full stack's batch), 1 and 37, from seeded numpy inputs,
+   the WBC and plant kernels timed at B = 1 as well (the single robot);
 3. drive the slice-1 main path: the walking trot of bench.py (vx = 0.3,
    gait phases spread over the batch, reference disturbance) at batch
    2048, h = 10, ADMM-30 in the fused stagewise kernel, as MPC periods of
@@ -137,19 +138,13 @@ FS_BATCH, FS_VX, FS_PERIODS, FS_WARM, FS_TIMED = 256, 0.15, 45, 3, 10
 TICK_CASES = (FS_BATCH, 1, 37)
 B1_CHAINS, B1_PERIODS = 10, 2
 # kernel vs plain version, the tolerances of the reference's kernel tests
-# (tests/test_kinematics_kernel.py, test_wbc_kernel.py, test_plant_kernel.py):
-# f32 sums in another order; the WBC's damped pseudo-inverses and the
-# plant's stiff contact amplify them.  The WBC's tau and fr are held
-# tighter than the reference's 1e-1, to 5e-5: f32 roundoff on forces of up
-# to ~60 N is ~4e-6, and one PDIP iteration fewer moves them by more than
-# 5e-5 (testing/kernel_cases.WBC_TOL says why q_des and qd_des stay loose)
+# (tests/test_kinematics_kernel.py): f32 sums in another order.  The WBC's
+# and the plant's are testing/kernel_cases.WBC_TOL and PLANT_TOL, which say
+# why they are what they are
 TICK_TOL = {
     "model": {"A": 1e-4, "G": 1e-3, "C": 2e-3, "Jc": 2e-5, "p_foot": 2e-5,
               "Jcdqd": 5e-4, "AinvA-I": 5e-3},
     "contact": {"Jc": 2e-5, "p_foot": 2e-5, "Jcdqd": 5e-4},
-    "wbc": {"q_des": 1.5e-3, "qd_des": 1e-2, "tau": 5e-5, "fr": 5e-5},
-    "plant": {"pos": 1e-5, "quat": 1e-6, "v_body": 5e-4, "q": 1e-5, "qd": 2e-3,
-              "p_foot": 1e-5, "anchor": 1e-5},
 }
 # slice 4: the estimation tick (KFParams.dt = 0.002: 500 ticks are 1 s) and
 # the condensed line (bench.py audits its sixth warm step)
@@ -285,11 +280,16 @@ def model_eval_flops() -> int:
             + cori)
 
 
-def pdip_lane0_flops() -> int:
-    """The serial vector work of one PDIP iteration (wbc.cu's two lane-0
-    sections), loop by loop.  max_step's ratio is counted on every row and
-    the update on every iteration: an upper count where a row's step does
-    not shrink or an instance freezes."""
+def pdip_row_flops() -> int:
+    """The row and vector work of one PDIP iteration besides the KKT
+    inverse and its three mat-vecs (wbc.cu: the floors, A x, the dual
+    residual, the complementarity sums, the rows' residuals, the KKT
+    right-hand side and matrix, the step, its length and the update), loop
+    by loop, each counted once: the lanes share it out (one a cone row or
+    a variable) and every lane repeats the two row-ordered sums, which
+    counts once here as the work the function needs.  The step's ratio is
+    counted on every row and the update on every iteration: an upper count
+    where a row's step does not shrink or an instance freezes."""
     NJ, NCON = 12, 24
     floors = 4 * NCON                                   # fmaxf on sl, su, zl, zu
     rdual = CONE_APPLY + NCON + CONE_APPLY_T + NJ * (2 * NJ - 1 + 2)
@@ -327,7 +327,7 @@ def wbc_flops(iters: int) -> int:
     bounds = CONE_APPLY + 4 + 2 * NCON                           # l, u - l
     qp_setup = (resid + spd_inv_flops(6) + gemm_flops(6, 6, 1) + gemm_flops(6, 6, NJ)
                 + NJ * NJ * (2 * 6 - 1 + 2) + NJ * (2 * 6 - 1 + 1) + bounds)
-    pdip_iter = (pdip_lane0_flops() + spd_inv_flops(NJ) + 3 * gemm_flops(NJ, NJ, 1)
+    pdip_iter = (pdip_row_flops() + spd_inv_flops(NJ) + 3 * gemm_flops(NJ, NJ, 1)
                  + 2 * NJ)
     finish = NJ + 6 * (2 * NJ - 1 + 2) + NJ * ((2 * ND - 1) + (2 * NJ - 1) + 2)
     return mask + kin + wbic + qp_setup + iters * pdip_iter + finish
@@ -720,7 +720,7 @@ def compare_tick_kernels(device, card: str) -> dict:
         for B in TICK_CASES:
             errs, outs, (kernel_fn, plain_fn) = case(B)
             torch.cuda.synchronize()
-            tol = TICK_TOL[key]
+            tol = {**TICK_TOL, "wbc": KC.WBC_TOL, "plant": KC.PLANT_TOL}[key]
             print(f"[kernel] {name} B={B}: " + ", ".join(
                 f"max|d{n}|={e:.3g} (tol {tol[n]})" for n, e in errs.items()))
             check(all(bool(torch.isfinite(o).all()) for o in outs),
@@ -732,6 +732,8 @@ def compare_tick_kernels(device, card: str) -> dict:
             if B == FS_BATCH:
                 ms, call_ms = kernel_ms(kernel_fn, 20, symbol)
                 plain_ms = time_ms(plain_fn, 3)
+            elif B == 1 and key in ("wbc", "plant"):     # the single-robot user's
+                b1_ms, b1_call_ms = kernel_ms(kernel_fn, 20, symbol)
         per_in, per_out, shared = TICK_FLOATS[key]
         nbytes = 4 * (FS_BATCH * (per_in + per_out) + shared)
         flops = FS_BATCH * flops_per
@@ -746,6 +748,10 @@ def compare_tick_kernels(device, card: str) -> dict:
               f"({call_ms:.4f} ms per call), plain version "
               f"{plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by}; {flops:.3e} flop, "
               f"{nbytes} B) on {card}")
+        if key in ("wbc", "plant"):
+            print(f"[kernel] {name} B=1: kernel {b1_ms:.4f} ms on the device "
+                  f"({b1_call_ms:.4f} ms per call between CUDA events), beside "
+                  f"{ms:.4f} ({call_ms:.4f}) at B={FS_BATCH} on {card}")
     return records
 
 

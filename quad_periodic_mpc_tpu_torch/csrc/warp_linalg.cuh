@@ -1,11 +1,15 @@
 // Warp-cooperative dense algebra on small row-major matrices, shared by the
-// kernels that give one warp to one instance (kinematics.cu, wbc.cu).
+// kernels that give one or more warps to one instance (kinematics.cu,
+// kf.cu, wbc.cu, stagewise_body.cuh).
 //
-// Every helper here is called by all 32 lanes of the warp (never inside a
-// lane-0 section): the lanes take the output entries round-robin, and each
-// entry is one lane's sequential sum in the order k = 0, 1, ..., as the
-// TPU kernels' unrolled `_mm` / `_mv` sum them.  The caller puts a
-// __syncwarp() between a helper and anything that reads its output.
+// Every helper here is called by all 32 lanes of one warp (never inside a
+// lane-0 section); lane() is the thread's lane within its warp and the
+// barriers are __syncwarp(), so two warps of a block may each run helpers
+// on their own matrices at once.  The lanes take the output entries
+// round-robin, and each entry is one lane's sequential sum in the order
+// k = 0, 1, ..., as the TPU kernels' unrolled `_mm` / `_mv` sum them.  The
+// caller puts a __syncwarp() between a helper and anything that reads its
+// output.
 // Operands live in shared memory (or read-only global memory); strides make
 // transposed operands free.
 #pragma once
@@ -84,13 +88,24 @@ __device__ __forceinline__ void inv3(const float* M, int ldm, float reg, float* 
 //   M = [[A, B], [B^T, D]],  S = D - B^T A^{-1} B,
 //   M^{-1} = [[A^{-1} - TR (A^{-1}B)^T, TR], [TR^T, S^{-1}]],
 //   TR = -(A^{-1} B) S^{-1}.
+// A level has two schedules of the same sums (every entry the same lane
+// sum in the same order, so the same values).  Split (kFused false): the
+// products A^{-1}B, S, TR and TL in turn, a barrier after each.  Fused: the
+// lane of S(i, j) forms column j of A^{-1}B itself (the lanes of row 0 also
+// store it), and the lane of TL(i, j) forms row i of TR itself (the lanes
+// of column 0 store it and its transpose), so a level has two barriers
+// instead of four at the price of recomputing those columns and rows; a
+// lane computes all its entries before it stores any.  The default fuses
+// a level where each step gives a lane at most two entries (H <= 8, so
+// N <= 16), where the barriers cost more than the repeated sums
+// (tests/test_torch_device_helpers.py holds the two to the same bits).
 // `out` must not overlap M; `scr` holds SpdInv<N>::kScratch floats.  The
 // whole warp calls run(); it ends with a __syncwarp().
-template <int N>
+template <int N, bool kFused = ((N + 1) / 2) * ((N + 1) / 2) <= 64>
 struct SpdInv;
 
-template <>
-struct SpdInv<1> {
+template <bool kFused>
+struct SpdInv<1, kFused> {
   static constexpr int kScratch = 0;
   __device__ static void run(const float* M, int, float* out, int, float*) {
     if (lane() == 0) out[0] = 1.0f / M[0];
@@ -98,8 +113,8 @@ struct SpdInv<1> {
   }
 };
 
-template <>
-struct SpdInv<2> {
+template <bool kFused>
+struct SpdInv<2, kFused> {
   static constexpr int kScratch = 0;
   __device__ static void run(const float* M, int ldm, float* out, int ldo, float*) {
     if (lane() == 0) {
@@ -114,8 +129,8 @@ struct SpdInv<2> {
   }
 };
 
-template <>
-struct SpdInv<3> {
+template <bool kFused>
+struct SpdInv<3, kFused> {
   static constexpr int kScratch = 0;
   __device__ static void run(const float* M, int ldm, float* out, int ldo, float*) {
     if (lane() == 0) inv3(M, ldm, 0.0f, out, ldo);
@@ -123,13 +138,47 @@ struct SpdInv<3> {
   }
 };
 
-template <int N>
+template <int N, bool kFused>
 struct SpdInv {
   static constexpr int H = (N + 1) / 2;
   static constexpr int R = N - H;
   static constexpr int kOwn = H * R + R * R + SpdInv<R>::kScratch;
   static constexpr int kScratch =
       SpdInv<H>::kScratch > kOwn ? SpdInv<H>::kScratch : kOwn;
+
+  // Fused: S(i, j), e = i R + j, with column j of A^{-1}B formed into col
+  __device__ static float s_entry(const float* M, int ldm, const float* Ai, int ldo, int e,
+                                  float* col) {
+    const int i = e / R, j = e - (e / R) * R;
+#pragma unroll
+    for (int m = 0; m < H; ++m) {
+      float acc = Ai[m * ldo] * M[H + j];
+#pragma unroll
+      for (int k = 1; k < H; ++k) acc = fmaf(Ai[m * ldo + k], M[k * ldm + H + j], acc);
+      col[m] = 1.0f * acc;
+    }
+    float acc = M[H + i] * col[0];
+#pragma unroll
+    for (int k = 1; k < H; ++k) acc = fmaf(M[k * ldm + H + i], col[k], acc);
+    return M[(H + i) * ldm + H + j] + -1.0f * acc;
+  }
+
+  // Fused: TL(i, j), e = i H + j, with row i of TR formed into tr
+  __device__ static float tl_entry(const float* AiB, const float* Si, const float* Ai, int ldo,
+                                   int e, float* tr) {
+    const int i = e / H, j = e - (e / H) * H;
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      float acc = AiB[i * R] * Si[k];
+#pragma unroll
+      for (int m = 1; m < R; ++m) acc = fmaf(AiB[i * R + m], Si[m * ldo + k], acc);
+      tr[k] = -1.0f * acc;
+    }
+    float acc = tr[0] * AiB[j * R];
+#pragma unroll
+    for (int k = 1; k < R; ++k) acc = fmaf(tr[k], AiB[j * R + k], acc);
+    return Ai[i * ldo + j] + -1.0f * acc;
+  }
 
   __device__ static void run(const float* M, int ldm, float* out, int ldo,
                              float* scr) {
@@ -138,20 +187,60 @@ struct SpdInv {
     float* Ai = out;             // top-left block of out, H x H
     float* Si = out + H * ldo + H;
     float* TR = out + H;
+    const int l = lane();
     SpdInv<H>::run(M, ldm, Ai, ldo, scr);
-    gemm(AiB, R, nullptr, 0, 1.0f, Ai, ldo, 1, M + H, ldm, 1, H, H, R);
-    __syncwarp();
-    // S = D - B^T AiB
-    gemm(S, R, M + H * ldm + H, ldm, -1.0f, M + H, 1, ldm, AiB, R, 1, R, H, R);
+    if constexpr (kFused) {
+      constexpr int K = (R * R + 31) / 32;
+      float v[K], col[K][H];
+#pragma unroll
+      for (int k = 0; k < K; ++k)   // a lane past the last entry computes entry 0, unstored
+        v[k] = s_entry(M, ldm, Ai, ldo, l + 32 * k < R * R ? l + 32 * k : 0, col[k]);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int e = l + 32 * k;
+        if (e < R * R) {
+          S[e] = v[k];
+          if (e < R)
+#pragma unroll
+            for (int m = 0; m < H; ++m) AiB[m * R + e] = col[k][m];
+        }
+      }
+    } else {
+      gemm(AiB, R, nullptr, 0, 1.0f, Ai, ldo, 1, M + H, ldm, 1, H, H, R);
+      __syncwarp();
+      // S = D - B^T AiB
+      gemm(S, R, M + H * ldm + H, ldm, -1.0f, M + H, 1, ldm, AiB, R, 1, R, H, R);
+    }
     __syncwarp();
     SpdInv<R>::run(S, R, Si, ldo, scr + H * R + R * R);
-    gemm(TR, ldo, nullptr, 0, -1.0f, AiB, R, 1, Si, ldo, 1, H, R, R);
-    __syncwarp();
-    // TL = Ai - TR AiB^T (in place), BL = TR^T
-    gemm(Ai, ldo, Ai, ldo, -1.0f, TR, ldo, 1, AiB, 1, R, H, R, H);
-    for (int e = lane(); e < R * H; e += 32) {
-      const int i = e / H, j = e - (e / H) * H;
-      out[(H + i) * ldo + j] = TR[j * ldo + i];
+    if constexpr (kFused) {
+      constexpr int K = (H * H + 31) / 32;
+      float v[K], tr[K][R];
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        v[k] = tl_entry(AiB, Si, Ai, ldo, l + 32 * k < H * H ? l + 32 * k : 0, tr[k]);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int e = l + 32 * k, i = e / H;
+        if (e < H * H) {
+          Ai[i * ldo + e - i * H] = v[k];
+          if (e - i * H == 0)
+#pragma unroll
+            for (int m = 0; m < R; ++m) {
+              TR[i * ldo + m] = tr[k][m];
+              out[(H + m) * ldo + i] = tr[k][m];     // BL = TR^T
+            }
+        }
+      }
+    } else {
+      gemm(TR, ldo, nullptr, 0, -1.0f, AiB, R, 1, Si, ldo, 1, H, R, R);
+      __syncwarp();
+      // TL = Ai - TR AiB^T (in place), BL = TR^T
+      gemm(Ai, ldo, Ai, ldo, -1.0f, TR, ldo, 1, AiB, 1, R, H, R, H);
+      for (int e = l; e < R * H; e += 32) {
+        const int i = e / H, j = e - (e / H) * H;
+        out[(H + i) * ldo + j] = TR[j * ldo + i];
+      }
     }
     __syncwarp();
   }

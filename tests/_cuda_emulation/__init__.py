@@ -3,10 +3,13 @@
 Each ``quad_periodic_mpc_tpu_torch/csrc/*.cu`` is compiled by the host C++
 compiler against the stand-in ``cuda_runtime.h`` beside this file: a launch
 runs the grid's blocks one after another with each block's threads as
-std::threads, ``__syncwarp()`` and ``__syncthreads()`` are a barrier over the
-block, a launch's dynamic shared memory is one buffer per block, and the
-``cp.async`` primitives (``cuda_pipeline_primitives.h``) queue each
-thread's copies until it waits for them.  Inside
+std::threads, ``__syncwarp()`` is a barrier over the calling thread's warp
+and ``__syncthreads()`` one over the block, the warp-wide exchanges
+(``__shfl_sync``, ``__shfl_xor_sync``, ``__all_sync``) go through a slot
+per lane between two warp barriers, a launch's dynamic shared memory is one
+buffer per block, and the ``cp.async`` primitives
+(``cuda_pipeline_primitives.h``) queue each thread's copies until it waits
+for them.  Inside
 ``emulated()`` the port's ``ops/cuda/build.load`` returns these libraries
 and ``torch.cuda.device`` / ``current_stream`` do nothing, so a wrapper's
 CUDA branch (its ``_*_cuda`` function) runs the kernel's own arithmetic on

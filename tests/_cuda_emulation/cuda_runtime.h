@@ -1,7 +1,10 @@
 // Host-compiler stand-in for the CUDA runtime header, so the port's csrc
 // kernels compile and run on the CPU (see __init__.py).  A launch runs the
 // grid's blocks one after another, each block's threads as std::threads;
-// __syncwarp() and __syncthreads() are a barrier over the block's threads;
+// __syncwarp() is a barrier over the calling thread's warp (its 32-thread
+// slice of the block) and __syncthreads() one over the block's threads; the
+// warp-wide exchanges (__shfl_sync, __shfl_xor_sync, __all_sync) are taken
+// by every thread of the warp, whatever the mask;
 // __shared__ data is a function-local static, shared by the threads of the
 // block being run; `extern __shared__ T name[];` is rewritten to a pointer
 // to the launch's dynamic shared memory, allocated anew for each block.
@@ -29,6 +32,7 @@ extern thread_local emu_dim3 threadIdx, blockIdx, blockDim;
 typedef void* cudaStream_t;
 inline int cudaGetLastError() { return 0; }
 inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
+inline float __fdividef(float a, float b) { return a / b; }
 
 inline uint32_t __float_as_uint(float f) {
   uint32_t u;
@@ -45,8 +49,11 @@ template <class T>
 inline int cudaFuncSetAttribute(T*, cudaFuncAttribute, int) { return 0; }
 
 extern void* emu_dynamic_smem;
-void __syncwarp();
-inline void __syncthreads() { __syncwarp(); }
+void __syncwarp(unsigned mask = 0xffffffffu);
+void __syncthreads();
+float __shfl_sync(unsigned mask, float v, int src_lane, int width = 32);
+float __shfl_xor_sync(unsigned mask, float v, int lane_mask, int width = 32);
+int __all_sync(unsigned mask, int predicate);
 void emu_launch(int grid, int block, int smem, std::function<void()> fn);
 // kernel<<<grid, block, smem, stream>>>(args...) is rewritten to this
 #define EMU_LAUNCH(G, T, S, K, ...) emu_launch(G, T, S, [&] { K(__VA_ARGS__); })

@@ -3,14 +3,18 @@ versions.
 
 ``tests/_cuda_emulation`` compiles each ``csrc/*.cu`` with the host C++
 compiler (a launch runs its blocks in turn on std::threads,
-``__syncwarp()`` and ``__syncthreads()`` are a barrier) and routes the wrappers' CUDA branches to
-it, so each kernel's own arithmetic, indexing and warp synchronisation run
-here on CPU tensors.  Speed is measured only on the card (chip_smoke.py,
-tests/test_torch_kernels_gpu.py).  Inputs are the seeded recipes of
+``__syncwarp()`` is a barrier over the warp and ``__syncthreads()`` one
+over the block, the shuffles and votes exchange through the warp) and
+routes the wrappers' CUDA branches to it, so each kernel's own arithmetic,
+indexing and warp synchronisation run here on CPU tensors.  Speed is
+measured only on the card (chip_smoke.py, tests/test_torch_kernels_gpu.py,
+tools/time_tick_cuda.py).  Inputs are the seeded recipes of
 ``quad_periodic_mpc_tpu_torch/testing/kernel_cases``; tolerances are those
 of the card tests: the host compiler sums in the kernel's order but
 contracts FMAs differently from nvcc, so the gaps are of the card's size.
 """
+
+import dataclasses
 
 import _cuda_emulation as cuda_emulation
 import pytest
@@ -69,27 +73,38 @@ def test_contact_kinematics_kernel(emulated):
     assert _maxdiff(info.p_foot, ref.p_foot) < 2e-5
 
 
-def test_wbc_kernel(emulated):
+@pytest.mark.parametrize("pdip_iters", [0, 1, 15])
+def test_wbc_kernel(emulated, pdip_iters):
     """KC.WBC_TOL (q_des 1.5e-3, qd_des 1e-2, tau and fr 5e-5; the reasons
-    are stated there), over the five stance patterns twice."""
+    are stated there), over the five stance patterns twice, with no PDIP
+    iteration (the two cascades, the QP set-up and the torques alone), one,
+    and the full stack's 15.  One launch per call."""
     args = KC.wbc_kernel_args(*KC.wbc_state_and_input(10, device="cpu"))
-    got = WK._fused_wbc_cuda(*args, WBCGains(), KC.WBC_PDIP)
-    want = WK.fused_wbc_reference(*args, WBCGains(), KC.WBC_PDIP)
+    pdip = dataclasses.replace(KC.WBC_PDIP, iterations=pdip_iters)
+    before = WK.LAUNCHES
+    got = WK._fused_wbc_cuda(*args, WBCGains(), pdip)
+    assert WK.LAUNCHES == before + 1
+    want = WK.fused_wbc_reference(*args, WBCGains(), pdip)
     for g, w, name in zip(got, want, ("q_des", "qd_des", "tau", "fr")):
         assert _maxdiff(g, w) < KC.WBC_TOL[name], name
 
 
-def test_plant_kernel(emulated):
-    """pos 1e-5, quat 1e-6, v_body 5e-4, q 1e-5, qd 2e-3, p_foot and
-    anchors 1e-5 (the reference's test_fused_substeps_match_step_fast)."""
-    plant, tau, cache, Jc, pf = KC.plant_case(3, device="cpu")
-    run = lambda fn: fn(plant, tau, 2e-4, ContactParams(), cache, Jc, pf, 10)
-    (pb, pf_b), (pa, pf_a) = run(PK._fused_substeps_cuda), run(PK.fused_substeps_reference)
-    for g, w, tol in ((pb.fb.pos, pa.fb.pos, 1e-5), (pb.fb.quat, pa.fb.quat, 1e-6),
-                      (pb.fb.v_body, pa.fb.v_body, 5e-4), (pb.fb.q, pa.fb.q, 1e-5),
-                      (pb.fb.qd, pa.fb.qd, 2e-3), (pf_b, pf_a, 1e-5),
-                      (pb.anchor, pa.anchor, 1e-5)):
-        assert _maxdiff(g, w) < tol
+@pytest.mark.parametrize("B,substeps", [(3, 1), (3, 10), (4, 10), (1, 10)])
+def test_plant_kernel(emulated, B, substeps):
+    """KC.PLANT_TOL (pos 1e-5, quat 1e-6, v_body 5e-4, q 1e-5, qd 2e-3,
+    p_foot and anchors 1e-5; the reasons are stated there), one
+    substep and ten; B = 3 and 1 leave the last two-instance block half
+    empty, B = 4 fills both.  One launch per call."""
+    plant, tau, cache, Jc, pf = KC.plant_case(B, device="cpu")
+    run = lambda fn: fn(plant, tau, 2e-4, ContactParams(), cache, Jc, pf, substeps)
+    before = PK.LAUNCHES
+    got = run(PK._fused_substeps_cuda)
+    assert PK.LAUNCHES == before + 1
+    (pb, pf_b), (pa, pf_a) = got, run(PK.fused_substeps_reference)
+    for name in ("pos", "quat", "v_body", "q", "qd"):
+        assert _maxdiff(getattr(pb.fb, name), getattr(pa.fb, name)) < KC.PLANT_TOL[name], name
+    assert _maxdiff(pf_b, pf_a) < KC.PLANT_TOL["p_foot"]
+    assert _maxdiff(pb.anchor, pa.anchor) < KC.PLANT_TOL["anchor"]
     assert torch.equal(pb.in_contact, pa.in_contact)
     assert torch.equal(pb.t, pa.t)
 

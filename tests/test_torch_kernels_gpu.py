@@ -7,6 +7,8 @@ installed (the repository's conftest does import JAX, hence --noconftest):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_gpu.py
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -204,19 +206,22 @@ def test_contact_kinematics_kernel_matches_plain_version(cuda, B):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("pdip_iters", [0, 1, 15])
 @pytest.mark.parametrize("B", [1, 37, 256])
-def test_wbc_kernel_matches_plain_version(cuda, B):
+def test_wbc_kernel_matches_plain_version(cuda, B, pdip_iters):
     """KC.WBC_TOL: q_des 1.5e-3, qd_des 1e-2 (damped pinvs of near-singular
     projected task Jacobians amplify reordered sums), fr and tau 5e-5 N /
     Nm after 15 interior-point iterations (below what one iteration fewer
-    moves them)."""
+    moves them); also with none (the cascades, QP set-up and torques alone)
+    and one, the settings tools/time_tick_cuda.py times."""
     st, inp = KC.wbc_state_and_input(B, device=cuda)
     args = KC.wbc_kernel_args(st, inp)
+    pdip = dataclasses.replace(KC.WBC_PDIP, iterations=pdip_iters)
     before = WK.LAUNCHES
-    got = WK.fused_wbc(*args, WBCGains(), KC.WBC_PDIP)
+    got = WK.fused_wbc(*args, WBCGains(), pdip)
     torch.cuda.synchronize()
     assert WK.LAUNCHES == before + 1
-    want = WK.fused_wbc_reference(*args, WBCGains(), KC.WBC_PDIP)
+    want = WK.fused_wbc_reference(*args, WBCGains(), pdip)
     for g, w, name in zip(got, want, ("q_des", "qd_des", "tau", "fr")):
         assert bool(torch.isfinite(g).all())
         assert _maxdiff(g, w) < KC.WBC_TOL[name], name
@@ -239,23 +244,24 @@ def test_wbc_run_pallas_rejects_float64(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("substeps", [1, 10])
 @pytest.mark.parametrize("B", [1, 37, 256])
-def test_plant_kernel_matches_plain_version(cuda, B):
-    """The tolerances of test_fused_substeps_match_step_fast: pos 1e-5,
-    quat 1e-6, v_body 5e-4, q 1e-5, qd 2e-3, p_foot and anchors 1e-5
-    (10 substeps of stiff penalty contact amplify reordered sums in qdd)."""
+def test_plant_kernel_matches_plain_version(cuda, B, substeps):
+    """KC.PLANT_TOL, the tolerances of test_fused_substeps_match_step_fast:
+    pos 1e-5, quat 1e-6, v_body 5e-4, q 1e-5, qd 2e-3, p_foot and anchors
+    1e-5 (10 substeps of stiff penalty contact amplify reordered sums in
+    qdd).  B = 1 and 37 leave the last block of two instances half empty."""
     plant, tau, cache, Jc, pf = KC.plant_case(B, device=cuda)
     params = ContactParams()
     before = PK.LAUNCHES
-    pb, pf_b = PK.fused_substeps(plant, tau, 2e-4, params, cache, Jc, pf, 10)
+    pb, pf_b = PK.fused_substeps(plant, tau, 2e-4, params, cache, Jc, pf, substeps)
     torch.cuda.synchronize()
     assert PK.LAUNCHES == before + 1
-    pa, pf_a = PK.fused_substeps_reference(plant, tau, 2e-4, params, cache, Jc, pf, 10)
-    for g, w, tol in ((pb.fb.pos, pa.fb.pos, 1e-5), (pb.fb.quat, pa.fb.quat, 1e-6),
-                      (pb.fb.v_body, pa.fb.v_body, 5e-4), (pb.fb.q, pa.fb.q, 1e-5),
-                      (pb.fb.qd, pa.fb.qd, 2e-3), (pf_b, pf_a, 1e-5),
-                      (pb.anchor, pa.anchor, 1e-5)):
-        assert _maxdiff(g, w) < tol
+    pa, pf_a = PK.fused_substeps_reference(plant, tau, 2e-4, params, cache, Jc, pf, substeps)
+    for name in ("pos", "quat", "v_body", "q", "qd"):
+        assert _maxdiff(getattr(pb.fb, name), getattr(pa.fb, name)) < KC.PLANT_TOL[name], name
+    assert _maxdiff(pf_b, pf_a) < KC.PLANT_TOL["p_foot"]
+    assert _maxdiff(pb.anchor, pa.anchor) < KC.PLANT_TOL["anchor"]
     assert torch.equal(pb.in_contact, pa.in_contact)
 
 
