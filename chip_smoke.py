@@ -17,7 +17,8 @@ result line) when it fails:
    each timed, and at ragged shapes (B = 1, 133, 1000; h = 48); the torque
    tick's model evaluation, contact kinematics, WBC and plant substeps at
    B = 256 (the full stack's batch), 1 and 37, from seeded numpy inputs,
-   the WBC and plant kernels timed at B = 1 as well (the single robot);
+   the model evaluation, WBC and plant kernels timed at B = 1 as well (the
+   single robot);
 3. drive the slice-1 main path: the walking trot of bench.py (vx = 0.3,
    gait phases spread over the batch, reference disturbance) at batch
    2048, h = 10, ADMM-30 in the fused stagewise kernel, as MPC periods of
@@ -54,7 +55,8 @@ result line) when it fails:
    lines also dump the kernel's own build (srb_build_dump) beside the
    audited problem;
 8. hold the slice-4 kernels against their plain versions: fused_kf_innovate
-   on conditioned seeded states at B = 2048, 37 and 1 and on states from
+   on conditioned seeded states at B = 2048, 37 and 1 (timed at 2048 and
+   1) and on states from
    tick 3 of a cold start (the looser, stated tolerance; ticks 0 and 1 are
    printed, not gated), the kernel's and the plain version's x' also within
    a stated multiple of eps * cond(S) of float64 instance by instance, and
@@ -138,14 +140,10 @@ FS_BATCH, FS_VX, FS_PERIODS, FS_WARM, FS_TIMED = 256, 0.15, 45, 3, 10
 TICK_CASES = (FS_BATCH, 1, 37)
 B1_CHAINS, B1_PERIODS = 10, 2
 # kernel vs plain version, the tolerances of the reference's kernel tests
-# (tests/test_kinematics_kernel.py): f32 sums in another order.  The WBC's
-# and the plant's are testing/kernel_cases.WBC_TOL and PLANT_TOL, which say
-# why they are what they are
-TICK_TOL = {
-    "model": {"A": 1e-4, "G": 1e-3, "C": 2e-3, "Jc": 2e-5, "p_foot": 2e-5,
-              "Jcdqd": 5e-4, "AinvA-I": 5e-3},
-    "contact": {"Jc": 2e-5, "p_foot": 2e-5, "Jcdqd": 5e-4},
-}
+# (tests/test_kinematics_kernel.py): f32 sums in another order.  The model
+# evaluation's, the WBC's and the plant's are testing/kernel_cases.MODEL_TOL,
+# WBC_TOL and PLANT_TOL, which say why they are what they are
+TICK_TOL = {"contact": {"Jc": 2e-5, "p_foot": 2e-5, "Jcdqd": 5e-4}}
 # slice 4: the estimation tick (KFParams.dt = 0.002: 500 ticks are 1 s) and
 # the condensed line (bench.py audits its sixth warm step)
 EST_TICKS, EST_PROFILE_TICKS, EST_XLA_TICKS = 500, 20, 300
@@ -424,25 +422,32 @@ def kernel_ms(fn, reps: int, symbol: str) -> tuple[float, float]:
     per call from CUDA events).  A kernel shorter than its wrapper's
     host-side cost leaves the device idle between calls, which the events
     count and the device time does not.  Fails the run where the profiler records no device
-    time for `symbol` (a renamed kernel, or a profiler that sees no
-    device), rather than report the events' time as the kernel's."""
+    time for `symbol` in three windows (a renamed kernel, or a profiler
+    that sees no device), rather than report the events' time as the
+    kernel's."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     per_call = time_ms(fn, reps)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and symbol in e.key]
-    launches = sum(e.count for e in rows)
     # the trace drops some launches of a window (15 to 19 of 20 have been
-    # seen, more in the later windows of a process); the time is per launch
-    # that it did record.  None, or a launch too many, is a renamed kernel or
-    # a profiler that sees no device
+    # seen, more in the later windows of a process, and once all 20 of a
+    # window that a fresh process records in full); the time is per launch
+    # that it did record.  A window that recorded none is profiled again,
+    # twice at most.  None in three windows, or a launch too many, is a
+    # renamed kernel or a profiler that sees no device
+    for window in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and symbol in e.key]
+        launches = sum(e.count for e in rows)
+        if launches:
+            break
+        print(f"[kernel] the profiler recorded no launch of {symbol} in window {window + 1}")
     check(1 <= launches <= reps, f"the profiler saw {launches} "
-          f"device launches of {symbol!r} in {reps} calls")
+          f"device launches of {symbol!r} in {reps} calls, in each of three windows")
     if launches < reps:
         print(f"[kernel] the profiler recorded {launches} of {reps} launches of {symbol}")
     return sum(e.self_device_time_total for e in rows) / 1e3 / launches, per_call
@@ -720,7 +725,8 @@ def compare_tick_kernels(device, card: str) -> dict:
         for B in TICK_CASES:
             errs, outs, (kernel_fn, plain_fn) = case(B)
             torch.cuda.synchronize()
-            tol = {**TICK_TOL, "wbc": KC.WBC_TOL, "plant": KC.PLANT_TOL}[key]
+            tol = {**TICK_TOL, "model": KC.MODEL_TOL, "wbc": KC.WBC_TOL,
+                   "plant": KC.PLANT_TOL}[key]
             print(f"[kernel] {name} B={B}: " + ", ".join(
                 f"max|d{n}|={e:.3g} (tol {tol[n]})" for n, e in errs.items()))
             check(all(bool(torch.isfinite(o).all()) for o in outs),
@@ -732,7 +738,7 @@ def compare_tick_kernels(device, card: str) -> dict:
             if B == FS_BATCH:
                 ms, call_ms = kernel_ms(kernel_fn, 20, symbol)
                 plain_ms = time_ms(plain_fn, 3)
-            elif B == 1 and key in ("wbc", "plant"):     # the single-robot user's
+            elif B == 1 and key in ("model", "wbc", "plant"):     # the single-robot user's
                 b1_ms, b1_call_ms = kernel_ms(kernel_fn, 20, symbol)
         per_in, per_out, shared = TICK_FLOATS[key]
         nbytes = 4 * (FS_BATCH * (per_in + per_out) + shared)
@@ -748,7 +754,7 @@ def compare_tick_kernels(device, card: str) -> dict:
               f"({call_ms:.4f} ms per call), plain version "
               f"{plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by}; {flops:.3e} flop, "
               f"{nbytes} B) on {card}")
-        if key in ("wbc", "plant"):
+        if key in ("model", "wbc", "plant"):
             print(f"[kernel] {name} B=1: kernel {b1_ms:.4f} ms on the device "
                   f"({b1_call_ms:.4f} ms per call between CUDA events), beside "
                   f"{ms:.4f} ({call_ms:.4f}) at B={FS_BATCH} on {card}")
@@ -1207,6 +1213,8 @@ def compare_slice4_kernels(device, card: str) -> dict:
     kf_plain = lambda a: FK.fused_kf_innovate_reference(*a, dt=KC.KF_DT)
     for B, seed in reversed(KF_CASES):
         args = KC.kf_case(B, seed=seed, device=device)
+        if B == 1:
+            b1_args = args
         got = kf(args)
         torch.cuda.synchronize()
         want = kf_plain(args)
@@ -1263,6 +1271,9 @@ def compare_slice4_kernels(device, card: str) -> dict:
     print(f"[kernel] {name} B={BATCH}: kernel {ms:.4f} ms on the device ({call_ms:.4f} ms per "
           f"call), plain version {plain_ms:.3f} ms, the dense chain {dense_ms:.3f} ms, bound "
           f"{bound_ms:.5f} ms ({by}; {flops:.3e} flop, {nbytes} B) on {card}")
+    b1_ms, b1_call_ms = kernel_ms(lambda: kf(b1_args), 20, "kf_kernel")
+    print(f"[kernel] {name} B=1: kernel {b1_ms:.4f} ms on the device ({b1_call_ms:.4f} ms per "
+          f"call between CUDA events), beside {ms:.4f} ({call_ms:.4f}) at B={BATCH} on {card}")
 
     # ---- fused_admm_iterations ----
     name, worst, timed = "fused_admm_iterations", 0.0, {}

@@ -4,7 +4,7 @@ kernel, wrapper and its plain PyTorch version.
 Replaces ``quad_periodic_mpc_tpu/ops/pallas/kf_kernel.py::fused_kf_innovate``
 (``_kernel``).  The kernel source is ``quad_periodic_mpc_tpu_torch/csrc/
 kf.cu``; its header note says what bounds it on an H100 and how it is laid
-out (one warp per instance, the covariance chain in shared memory).
+out (two warps per instance, the covariance chain in shared memory).
 
 - ``fused_kf_innovate``: the wrapper.  CUDA tensors launch the kernel (or
   raise); CPU tensors take the plain version.

@@ -15,8 +15,11 @@ Replaces ``quad_periodic_mpc_tpu/ops/pallas/kinematics_kernel.py``:
 
 Both kernels live in ``quad_periodic_mpc_tpu_torch/csrc/kinematics.cu``,
 whose header note says what bounds them on an H100 and how they are laid
-out (one warp per instance, the instance's tree in shared memory).  CPU
-tensors take the plain versions; CUDA tensors launch the kernels or raise.
+out (three warps per instance for the model evaluation, one for the
+contact kinematics; a leg per lane; the instance's tree in shared memory).
+They take the A1's tree (four legs of three joints); ``_tree`` checks it.
+CPU tensors take the plain versions; CUDA tensors launch the kernels or
+raise.
 ``LAUNCHES`` counts kernel launches by kernel name.
 """
 
@@ -37,7 +40,8 @@ LAUNCHES = {"fused_model_eval": 0, "fused_contact_kinematics": 0}
 
 
 class _Tree(ctypes.Structure):
-    """The tree's topology and static scalars (csrc/kinematics.cu Tree)."""
+    """The tree's topology and static scalars (csrc/kinematics.cu Tree);
+    the kernels assume the A1's topology, which ``_tree`` checks."""
 
     _fields_ = [
         ("parents", ctypes.c_int * 12), ("axis", ctypes.c_int * 12),
@@ -54,9 +58,16 @@ def model_eval_reference(state: fb.FBState, mc: fb.ModelConstants):
             fb.generalized_coriolis(state, mc), fb.contact_jacobians(state, mc))
 
 
+A1_PARENTS = (0, 1, 2, 0, 4, 5, 0, 7, 8, 0, 10, 11)   # four legs of three joints
+A1_GC_BODY = (3, 6, 9, 12)                             # the calves
+
+
 def _tree(mc: fb.ModelConstants, B: int) -> _Tree:
     if len(mc.gear_static) != 12 or len(mc.gravity_static) != 3:
         raise ValueError("ModelConstants lacks gear_static / gravity_static")
+    if tuple(mc.parents) != A1_PARENTS or tuple(mc.gc_body) != A1_GC_BODY:
+        raise ValueError("the kinematics kernels take the A1's tree: parents "
+                         f"{A1_PARENTS}, contact bodies {A1_GC_BODY}")
     return _Tree(
         parents=(ctypes.c_int * 12)(*mc.parents),
         axis=(ctypes.c_int * 12)(*({"x": 0, "y": 1}[a] for a in mc.axes)),

@@ -25,6 +25,11 @@ Q_STAND = np.array([0.0, 0.8, -1.6] * 4, np.float32)
 CONTACTS = np.array(
     [[1, 1, 1, 1], [0, 1, 1, 0], [1, 0, 0, 1], [0, 1, 1, 1], [1, 1, 0, 1]], np.float32)
 WBC_PDIP = PDIPConfig(iterations=15)      # the full stack's WBC PDIP
+# Fused model evaluation vs its plain version, max abs error: the
+# reference's test_model_kernel_matches_xla (A entries up to ~20, G up to
+# ~200; sums in another order); A^{-1} is held by |A^{-1} A - I|.
+MODEL_TOL = {"A": 1e-4, "G": 1e-3, "C": 2e-3, "Jc": 2e-5, "p_foot": 2e-5, "Jcdqd": 5e-4,
+             "AinvA-I": 5e-3}
 # Fused WBC kernel vs its plain version, max abs error.  q_des and qd_des
 # keep the reference kernel test's 1.5e-3 and 1e-2: with three feet in
 # stance the swing-foot task gets exactly the 3 DoF that the contact and

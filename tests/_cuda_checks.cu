@@ -42,6 +42,9 @@ extern "C" int spd_inv_6(const float* M, float* f, float* s, int B, void* st) {
 extern "C" int spd_inv_12(const float* M, float* f, float* s, int B, void* st) {
   return spd_inv<12>(M, f, s, B, st);
 }
+extern "C" int spd_inv_14(const float* M, float* f, float* s, int B, void* st) {
+  return spd_inv<14>(M, f, s, B, st);
+}
 extern "C" int spd_inv_18(const float* M, float* f, float* s, int B, void* st) {
   return spd_inv<18>(M, f, s, B, st);
 }

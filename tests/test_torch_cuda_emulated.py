@@ -46,10 +46,12 @@ def _maxdiff(a, b):
     return float((a - b).abs().max())
 
 
-@pytest.mark.parametrize("B", [1, 5])
+@pytest.mark.parametrize("B", [1, 2, 5])
 def test_model_eval_kernel(emulated, B):
     """A 1e-4, G 1e-3, C 2e-3, Jc and p_foot 2e-5, Jc qdot 5e-4,
-    |A^{-1} A - I| 5e-3 (the reference's test_model_kernel_matches_xla)."""
+    |A^{-1} A - I| 5e-3 (the reference's test_model_kernel_matches_xla).
+    A block of three warps per instance: B = 1 is one block, B = 2 the
+    smallest batch with a second."""
     st = KC.model_states(B, seed=4, device="cpu")
     before = KK.LAUNCHES["fused_model_eval"]
     A, Ainv, G, C, info = KK._model_eval_cuda(st, MC)
@@ -64,13 +66,36 @@ def test_model_eval_kernel(emulated, B):
     assert _maxdiff(Ainv @ A, torch.eye(18).expand(B, 18, 18)) < 5e-3
 
 
-def test_contact_kinematics_kernel(emulated):
-    st = KC.model_states(3, seed=2, device="cpu")
+def _check_contact_kinematics(B):
+    st = KC.model_states(B, seed=2, device="cpu")
     info = KK._contact_kinematics_cuda(st, MC)
     ref = fb.contact_jacobians(st, MC)
     assert _maxdiff(info.Jc, ref.Jc) < 2e-5
     assert _maxdiff(info.Jcdqd, ref.Jcdqd) < 5e-4
     assert _maxdiff(info.p_foot, ref.p_foot) < 2e-5
+
+
+def test_contact_kinematics_kernel(emulated):
+    _check_contact_kinematics(3)
+
+
+def test_contact_kinematics_kernel_one_instance(emulated):
+    """One block: the walk's lanes 0..3 and the transforms' 0..12 alone."""
+    _check_contact_kinematics(1)
+
+
+def test_kinematics_kernels_take_the_a1_tree_only():
+    """The kernels hard-wire the A1's four legs of three joints; a model
+    with another tree raises in the wrapper before anything is built or
+    launched, and counts no launch."""
+    st = KC.model_states(2, seed=2, device="cpu")
+    other = MC._replace(parents=(0, 1, 2, 0, 4, 5, 0, 7, 8, 0, 10, 10))
+    before = dict(KK.LAUNCHES)
+    with pytest.raises(ValueError, match="A1"):
+        KK._model_eval_cuda(st, other)
+    with pytest.raises(ValueError, match="A1"):
+        KK._contact_kinematics_cuda(st, MC._replace(gc_body=(3, 6, 9, 11)))
+    assert KK.LAUNCHES == before
 
 
 @pytest.mark.parametrize("pdip_iters", [0, 1, 15])
@@ -182,12 +207,13 @@ def test_srb_build_dump_kernel(emulated):
         assert _maxdiff(g, b) < 1e-6
 
 
-@pytest.mark.parametrize("B", [1, 5, 64])
+@pytest.mark.parametrize("B", [1, 2, 5, 64])
 def test_kf_kernel(emulated, B):
     """Conditioned seeded states: KC.KF_TOL (x 5e-3, P 2e-4; the reasons are
     stated there), and the kernel's and the plain version's x' within
     KC.KF_COND_FACTOR * eps * cond(S) of float64 instance by instance.  One
-    launch per call."""
+    launch per call; a block of two warps per instance (B = 2: the smallest
+    batch with a second block)."""
     args = KC.kf_case(B, seed=B, device="cpu")
     before = FK.LAUNCHES
     got = FK._fused_kf_innovate_cuda(*args, dt=KC.KF_DT)
@@ -200,16 +226,25 @@ def test_kf_kernel(emulated, B):
         assert float(KC.kf_x_error_over_conditioning(args, x_new).max()) < KC.KF_COND_FACTOR
 
 
+def _check_kf_cold_start(B, ticks):
+    args = KC.kf_transient_case(B, ticks=ticks, seed=ticks, device="cpu")
+    got = FK._fused_kf_innovate_cuda(*args, dt=KC.KF_DT)
+    want = FK.fused_kf_innovate_reference(*args, dt=KC.KF_DT)
+    for g, w, name in zip(got, want, "xP"):
+        assert _maxdiff(g, w) < KC.KF_TOL_TRANSIENT[name], name
+
+
 @pytest.mark.parametrize("ticks", [0, 3, 40])
 def test_kf_kernel_from_a_cold_start(emulated, ticks):
     """States from inside and after the start-up transient (P0 = 100 I):
     KC.KF_TOL_TRANSIENT (x 2e-3, P 2e-2), the looser gate that kernel_cases
     explains."""
-    args = KC.kf_transient_case(6, ticks=ticks, seed=ticks, device="cpu")
-    got = FK._fused_kf_innovate_cuda(*args, dt=KC.KF_DT)
-    want = FK.fused_kf_innovate_reference(*args, dt=KC.KF_DT)
-    for g, w, name in zip(got, want, "xP"):
-        assert _maxdiff(g, w) < KC.KF_TOL_TRANSIENT[name], name
+    _check_kf_cold_start(6, ticks)
+
+
+def test_kf_kernel_from_a_cold_start_one_instance(emulated):
+    """The same gate for one instance (one block) at tick 3."""
+    _check_kf_cold_start(1, 3)
 
 
 @pytest.mark.parametrize("B,h,iters,warm,kinv_bf16", [

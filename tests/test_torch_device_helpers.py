@@ -10,7 +10,9 @@ the card by nvcc (``gpu`` marker) and for the CPU through
   runs the top level both ways on seeded SPD matrices (below that level
   both use the default schedule), and both are held to the float64
   inverse.  N = 6 and 12 are the WBC's, 18 the model evaluation's, 28 the
-  KF's.
+  KF's S (whose top level ``kf.cu`` now takes over its block with the same
+  sums as the split schedule), 14 the two inverses below it, which the KF
+  runs with the split schedule.
 - ``div_rn`` (``csrc/div_rn.cuh``, the plant's division): bit for bit
   against IEEE float32 division (numpy's) on seeded quotients of the
   sizes the plant divides and on divisors whose significand is all ones.
@@ -44,7 +46,7 @@ def _spd(rng, B, n):
     return ((q * ev) @ q.transpose(0, 2, 1)).astype(np.float32)
 
 
-@pytest.mark.parametrize("n", [6, 12, 18, 28])
+@pytest.mark.parametrize("n", [6, 12, 14, 18, 28])
 def test_spd_inv_schedules_agree(device, n):
     B = 3 if device.type == "cpu" else 512
     m = _spd(np.random.default_rng(n), B, n)

@@ -266,12 +266,14 @@ def test_plant_kernel_matches_plain_version(cuda, B, substeps):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B", [1, 37, 2048])
+@pytest.mark.parametrize("B", [1, 37, 1585, 2048])
 def test_kf_kernel_matches_plain_version(cuda, B):
     """Conditioned seeded states: KC.KF_TOL (x 5e-3, P 2e-4: f32 sums in
     another order; the reasons are stated there), and the kernel's and the
     plain version's x' within KC.KF_COND_FACTOR * eps * cond(S) of float64
-    instance by instance.  One launch per call."""
+    instance by instance.  One launch per call.  B = 1585 is one instance
+    past the first design's one-wave limit (12 blocks on each of 132 SMs),
+    B = 2048 the estimation tick's batch."""
     args = KC.kf_case(B, seed=B, device=cuda)
     before = FK.LAUNCHES
     got = FK.fused_kf_innovate(*args, dt=KC.KF_DT)
