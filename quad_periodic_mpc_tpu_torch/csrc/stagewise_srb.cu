@@ -26,10 +26,13 @@
 // few hundred FMAs once per solve.
 //
 // The dump is bound by bytes: 28 floats in and 338 out per instance against
-// a few hundred FMAs.  It keeps one thread per instance: each thread writes
-// its instance's 338 contiguous floats, so a warp's stores are strided by
-// 1352 B; staging a block's outputs through shared memory would coalesce
-// them, which an audit hook does not need.
+// a few hundred FMAs, so what matters is that every SM takes part and that
+// the stores are coalesced.  One warp per instance, four to a 128-thread
+// block (B = 2048 is 512 blocks over all 132 SMs): lane 0 runs the same
+// srb_assemble into the warp's slice of shared memory, as kernel 1's
+// prologue does, and after a __syncwarp() the warp writes Ad = I + N, Bd and
+// c, each a contiguous run of the instance's outputs, consecutive lanes on
+// consecutive words.  No per-thread array is left to live in local memory.
 
 #include "stagewise_body.cuh"
 
@@ -55,22 +58,30 @@ __global__ void __launch_bounds__(32, 16) stagewise_srb_kernel(
   solve_body<true, false>(sm, io, p);
 }
 
-__global__ void __launch_bounds__(128) srb_build_dump_kernel(
+constexpr int kDumpWarps = 4;   // instances a block, one warp each
+
+__global__ void __launch_bounds__(32 * kDumpWarps) srb_build_dump_kernel(
     const float* __restrict__ R_in, const float* __restrict__ rf_in,
     const float* __restrict__ xd_in, const float* __restrict__ fe_in,
     float* __restrict__ Ad_out, float* __restrict__ Bd_out,
     float* __restrict__ c_out, Params p) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= p.B) return;
-  float N[NX * NX], Bd[NX * NU], cv[NX];
-  srb_assemble(R_in + (size_t)b * 9, rf_in + (size_t)b * NU, xd_in[b],
-               fe_in + (size_t)b * 6, p, N, Bd, cv);
+  __shared__ float built[kDumpWarps][NX * NX + NX * NU + NX];
+  const int w = threadIdx.x / 32, lane = wl::lane();
+  const int b = blockIdx.x * kDumpWarps + w;
+  if (b >= p.B) return;                      // a whole warp: no block barrier follows
+  float* N = built[w];
+  float* Bd = N + NX * NX;
+  float* cv = Bd + NX * NU;
+  if (lane == 0)
+    srb_assemble(R_in + (size_t)b * 9, rf_in + (size_t)b * NU, xd_in[b],
+                 fe_in + (size_t)b * 6, p, N, Bd, cv);
+  __syncwarp();
   float* Ad = Ad_out + (size_t)b * NX * NX;
   float* Bo = Bd_out + (size_t)b * NX * NU;
   float* co = c_out + (size_t)b * NX;
-  for (int i = 0; i < NX * NX; ++i) Ad[i] = ((i % (NX + 1)) == 0 ? 1.f : 0.f) + N[i];
-  for (int i = 0; i < NX * NU; ++i) Bo[i] = Bd[i];
-  for (int i = 0; i < NX; ++i) co[i] = cv[i];
+  for (int i = lane; i < NX * NX; i += 32) Ad[i] = ((i % (NX + 1)) == 0 ? 1.f : 0.f) + N[i];
+  for (int i = lane; i < NX * NU; i += 32) Bo[i] = Bd[i];
+  if (lane < NX) co[lane] = cv[lane];
 }
 
 extern "C" int stagewise_srb_launch(
@@ -87,9 +98,8 @@ extern "C" int stagewise_srb_launch(
 extern "C" int srb_build_dump_launch(
     const float* R, const float* rf, const float* xd, const float* fe,
     float* Ad, float* Bd, float* c, Params p, void* stream) {
-  const int threads = 128;
-  const int blocks = (p.B + threads - 1) / threads;
-  srb_build_dump_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  const int blocks = (p.B + kDumpWarps - 1) / kDumpWarps;
+  srb_build_dump_kernel<<<blocks, 32 * kDumpWarps, 0, (cudaStream_t)stream>>>(
       R, rf, xd, fe, Ad, Bd, c, p);
   return (int)cudaGetLastError();
 }

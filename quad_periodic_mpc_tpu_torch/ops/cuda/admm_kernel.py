@@ -4,14 +4,21 @@ its plain PyTorch version.
 Replaces ``quad_periodic_mpc_tpu/ops/pallas/admm_kernel.py::
 fused_admm_iterations`` (``_kernel``).  The kernel source is
 ``quad_periodic_mpc_tpu_torch/csrc/admm.cu``; its header note says what
-bounds it on an H100, how it is laid out (one thread block per instance,
-K^{-1} in dynamic shared memory) and up to which horizon K^{-1} is resident.
+bounds it on an H100 (K^{-1} read once, then each iteration's chain of n
+dependent FMAs a variable), how it is laid out (one thread block per
+instance, a thread per variable and a warp per ten foot-steps, the first
+120 columns of K^{-1} in each thread's registers and the rest in dynamic
+shared memory, one barrier an iteration) and up to which horizon K^{-1} is
+resident (f32 h <= 22, bf16 h <= 30).  Past that it is read from device
+memory in every iteration, up to ``MAX_VARIABLES`` (n = 1920, h = 160).
 
 - ``fused_admm_iterations``: the wrapper.  CUDA tensors launch the kernel
   (or raise); CPU tensors take the plain version.
 - ``fused_admm_iterations_reference``: the plain version, the kernel's loop
   on ``constraints.apply`` / ``apply_T``; with ``kinv_bf16`` K^{-1} is
   rounded to bfloat16 and widened back before the loop.
+- ``kinv_resident`` / ``kinv_shared_bytes``: the kernel's own rule for
+  holding K^{-1} on chip, and the shared memory a block takes to do so.
 - ``LAUNCHES``: kernel launches since the count was last reset.
 """
 
@@ -27,6 +34,8 @@ from quad_periodic_mpc_tpu_torch.ops.cuda import build
 SOURCE = "admm.cu"
 
 LAUNCHES = 0
+# the most variables a block takes: 32 warps of 30 variables, two a thread
+MAX_VARIABLES = 1920
 
 
 class _Params(ctypes.Structure):
@@ -61,9 +70,10 @@ def fused_admm_iterations(K_inv, q, l, u, rho, F, x0, z0, y0, iters: int = 100,
                           kinv_bf16: bool = False):
     """Run ``iters`` OSQP iterations with K^{-1} read once.  K_inv (B, n, n)
     symmetric; q, x0 (B, n); l, u, rho, z0, y0 (B, m); F (5, 3) the pyramid
-    block, n = 3k, m = 5k for k foot-steps.  All float32 and contiguous, any
-    B >= 1.  kinv_bf16 stores K^{-1} on chip as bfloat16 (round to nearest
-    even) and accumulates in float32.  Returns (x, z, y)."""
+    block, n = 3k, m = 5k for k foot-steps, n <= MAX_VARIABLES on the card.
+    All float32 and contiguous, any B >= 1.  kinv_bf16 stores K^{-1} on chip
+    as bfloat16 (round to nearest even) and accumulates in float32.  Returns
+    (x, z, y)."""
     device = q.device
     if device.type == "cpu":
         return fused_admm_iterations_reference(K_inv, q, l, u, rho, F, x0, z0, y0, iters,
@@ -86,6 +96,9 @@ def _fused_admm_iterations_cuda(K_inv, q, l, u, rho, F, x0, z0, y0, iters: int =
         raise ValueError("need a batch of at least one instance")
     if n % 3 or m != 5 * (n // 3):
         raise ValueError(f"expected n = 3k and m = 5k, got n={n}, m={m}")
+    if n > MAX_VARIABLES:
+        raise ValueError(f"the kernel takes n <= {MAX_VARIABLES} variables "
+                         f"(h <= {MAX_VARIABLES // 12}), got n={n}")
     named = {"K_inv": (K_inv, (B, n, n)), "q": (q, (B, n)), "l": (l, (B, m)),
              "u": (u, (B, m)), "rho": (rho, (B, m)), "F": (F, (5, 3)), "x0": (x0, (B, n)),
              "z0": (z0, (B, m)), "y0": (y0, (B, m))}
@@ -102,8 +115,18 @@ def _fused_admm_iterations_cuda(K_inv, q, l, u, rho, F, x0, z0, y0, iters: int =
 
 
 def kinv_resident(n: int, m: int, kinv_bf16: bool = False) -> bool:
-    """Whether the kernel holds K^{-1} of an (n, m) problem in shared memory
-    (else it reads it from device memory in every iteration)."""
+    """Whether the kernel holds K^{-1} of an (n, m) problem on chip, in
+    registers and shared memory (else it reads it from device memory in
+    every iteration)."""
     fn = build.load(SOURCE).admm_resident
     fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
     return bool(fn(n, m, int(bool(kinv_bf16))))
+
+
+def kinv_shared_bytes(n: int, m: int, kinv_bf16: bool = False) -> int:
+    """Bytes of dynamic shared memory a block takes with K^{-1} of an (n, m)
+    problem held on chip; ``kinv_resident`` holds it there where these fit
+    a block."""
+    fn = build.load(SOURCE).admm_shared_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_long
+    return int(fn(n, m, int(bool(kinv_bf16))))

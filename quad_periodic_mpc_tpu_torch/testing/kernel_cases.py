@@ -327,6 +327,53 @@ def admm_tol(h: int) -> dict:
     return {"x": 2e-4 * h, "z": 2e-4 * h, "y": 1e-5}
 
 
+ADMM_TOL_MAX_H = 28     # the longest horizon admm_tol was calibrated on
+
+
+def admm_f64_gated(B: int, h: int) -> bool:
+    """Whether a (B, h) case that misses admm_tol is held to the float64
+    plain version instead (see ADMM_F64_FACTOR): past admm_tol's
+    calibration, or from h = 22 at hundreds of instances, where the first
+    design's kernel already lay past admm_tol on an H100 (B = 2048 at
+    h = 22, 27 and 33, B = 256 at h = 23, 28 and 34, with f32 and bf16
+    storage alike) and inside it at h <= 20 (tools/time_tick_cuda.py)."""
+    return h > ADMM_TOL_MAX_H or (B >= 256 and h >= 22)
+
+
+# The last horizons at which admm.cu holds K^{-1} on chip (in registers and
+# shared memory), by storage, and the shared memory a block may take on
+# sm_90 (an H100's opt-in limit).
+ADMM_LAST_RESIDENT_H = {False: 22, True: 30}
+SMEM_PER_BLOCK = 232448
+
+
+# (B, h, iterations, kinv_bf16, resident) around admm.cu's register part
+# (n = 12 h against J = 120), the change from J to J / 2 register columns,
+# and the resident limits, for the emulated and card tests; B is the
+# emulated tests' (the card tests take more instances).
+ADMM_LIMIT_CASES = [
+    *((2, h, 12, bf16, True) for bf16 in (False, True)
+      for h in (9, 10, 11)),     # n = 108 < J (guarded), n = J, n = 132 > J
+    *((1, h, 4, bf16, True) for bf16 in (False, True)
+      for h in (15, 16)),        # the last horizon with J register columns, the first with J / 2
+    (1, 22, 6, False, True),     # the largest resident f32 horizon
+    (1, 23, 6, False, False),    # the smallest streamed one
+    (1, 30, 4, True, True),      # the largest resident bf16 horizon
+    (1, 31, 4, True, False),     # the smallest streamed one
+]
+# n = 972, past 32 warps of 30 variables: two variables a thread.  cond(K)
+# is ~6e4 there, and float32 sums in any order sit ~0.07 from float64 on x
+# after two iterations, beyond admm_tol's calibration (ADMM_TOL_MAX_H);
+# such cases (and the shapes admm_f64_gated names) are held to the float64
+# plain version instead, no farther from it than ADMM_F64_FACTOR times the
+# float32 plain version is.  On an H100 the kernel's distance was at most
+# 0.82 times the plain version's over 8 seeds at each of
+# tools/time_tick_cuda.py's six gated shapes, and 0.98 times at
+# chip_smoke.py's one (B = 5, h = 31).
+ADMM_TWO_A_LANE_H = 81
+ADMM_F64_FACTOR = 2.0
+
+
 def admm_case(B: int, h: int, seed: int = 0, device="cuda", warm: bool = False,
               with_qp: bool = False):
     """Inputs of ``fused_admm_iterations`` (K_inv, q, l, u, rho, F, x0, z0,

@@ -9,7 +9,9 @@ and ``__syncthreads()`` one over the block, the warp-wide exchanges
 per lane between two warp barriers, a launch's dynamic shared memory is one
 buffer per block, and the ``cp.async`` primitives
 (``cuda_pipeline_primitives.h``) queue each thread's copies until it waits
-for them.  Inside
+for them.  ``float4`` is a 16-byte aligned struct and the dynamic shared
+memory 16-byte aligned, so a kernel's 128-bit loads from it run as they
+do on the card.  Inside
 ``emulated()`` the port's ``ops/cuda/build.load`` returns these libraries
 and ``torch.cuda.device`` / ``current_stream`` do nothing, so a wrapper's
 CUDA branch (its ``_*_cuda`` function) runs the kernel's own arithmetic on
@@ -38,7 +40,7 @@ from pathlib import Path
 _HERE = Path(__file__).resolve().parent
 _LAUNCH = re.compile(r"(\w+)<<<([^,]+),\s*([^,]+),\s*([^,]+),[^>]*>>>\(")
 _DYNAMIC_SMEM = re.compile(r"extern\s+__shared__\s+(\w+)\s+(\w+)\[\];")
-FLAGS = ["-std=c++17", "-O1", "-fPIC", "-shared", "-pthread"]
+FLAGS = ["-std=c++17", "-O1", "-fno-strict-aliasing", "-fPIC", "-shared", "-pthread"]
 
 
 def compiler() -> str | None:

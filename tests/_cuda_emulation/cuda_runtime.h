@@ -7,7 +7,8 @@
 // by every thread of the warp, whatever the mask;
 // __shared__ data is a function-local static, shared by the threads of the
 // block being run; `extern __shared__ T name[];` is rewritten to a pointer
-// to the launch's dynamic shared memory, allocated anew for each block.
+// to the launch's dynamic shared memory, allocated anew for each launch and
+// 16-byte aligned, as the card's is, so that float4 loads from it are legal.
 #pragma once
 
 #include <math.h>
@@ -23,6 +24,7 @@ struct emu_dim3 {
 extern thread_local emu_dim3 threadIdx, blockIdx, blockDim;
 
 #define __device__
+#define __host__
 #define __global__
 #define __constant__
 #define __forceinline__ inline
@@ -30,9 +32,14 @@ extern thread_local emu_dim3 threadIdx, blockIdx, blockDim;
 #define __shared__ static
 
 typedef void* cudaStream_t;
+enum cudaError { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+struct alignas(16) float4 {
+  float x, y, z, w;
+};
 inline int cudaGetLastError() { return 0; }
 inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
 inline float __fdividef(float a, float b) { return a / b; }
+inline float __fmul_rn(float a, float b) { return a * b; }   // never contracted
 
 inline uint32_t __float_as_uint(float f) {
   uint32_t u;

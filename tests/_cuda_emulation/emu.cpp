@@ -86,7 +86,10 @@ void emu_launch(int grid, int block, int smem, std::function<void()> fn) {
     fprintf(stderr, "launch of %d threads a block\n", block);
     abort();
   }
-  std::vector<double> dynamic((smem + 7) / 8 + 1);   // 8-byte aligned
+  struct alignas(16) Word16 {
+    unsigned char bytes[16];
+  };
+  std::vector<Word16> dynamic((smem + 15) / 16 + 1);   // 16-byte aligned
   emu_dynamic_smem = dynamic.data();
   for (int b = 0; b < grid; ++b) {
     block_bar.count = block;

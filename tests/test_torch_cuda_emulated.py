@@ -207,6 +207,19 @@ def test_srb_build_dump_kernel(emulated):
         assert _maxdiff(g, b) < 1e-6
 
 
+@pytest.mark.parametrize("B", [1, 33])
+def test_srb_build_dump_kernel_batches(emulated, B):
+    """Four instances a block, one warp each: B = 1 leaves three warps of
+    the only block idle, B = 33 one instance in the last block; 1e-6
+    against srb_assemble and the independent build, as above."""
+    args, sw = KC.srb_dump_case(B, seed=8 + B, device="cpu")
+    kw = dict(dt=0.026, mass=12.0, i_inv_diag=(1 / 0.07, 1 / 0.26, 1 / 0.242))
+    got = SK._srb_build_dump_cuda(*args, **kw)
+    for g, w, b in zip(got, SK.srb_assemble(*args, **kw), (sw.Ad, sw.Bd, sw.c)):
+        assert _maxdiff(g, w) < 1e-6
+        assert _maxdiff(g, b) < 1e-6
+
+
 @pytest.mark.parametrize("B", [1, 2, 5, 64])
 def test_kf_kernel(emulated, B):
     """Conditioned seeded states: KC.KF_TOL (x 5e-3, P 2e-4; the reasons are
@@ -253,11 +266,11 @@ def test_kf_kernel_from_a_cold_start_one_instance(emulated):
     (1, 20, 30, True, False), (1, 28, 30, True, True)])
 def test_admm_kernel(emulated, B, h, iters, warm, kinv_bf16):
     """Both storage variants, zero and non-zero starts, the main path's
-    horizon, a ragged one, h = 1, and the two horizons past the resident
-    sizes (h = 20 in float32, h = 28 in bfloat16: K^{-1} read from device
-    memory every iteration): KC.admm_tol(h) (x and z 2e-4 h, y 1e-5).  The
-    kernel's hand-written bfloat16 rounding is the plain version's
-    ``.to(bfloat16)``.  One launch per call."""
+    horizon, a ragged one, h = 1, and h = 20 in float32 and h = 28 in
+    bfloat16 (past the first design's resident sizes, inside this one's):
+    KC.admm_tol(h) (x and z 2e-4 h, y 1e-5).  The kernel's hand-written
+    bfloat16 rounding is the plain version's ``.to(bfloat16)``.  One launch
+    per call."""
     args = KC.admm_case(B, h, seed=h + B, device="cpu", warm=warm)
     before = AK.LAUNCHES
     got = AK._fused_admm_iterations_cuda(*args, iters=iters, kinv_bf16=kinv_bf16)
@@ -266,4 +279,64 @@ def test_admm_kernel(emulated, B, h, iters, warm, kinv_bf16):
     for g, w, name in zip(got, want, "xzy"):
         assert torch.isfinite(g).all()
         assert _maxdiff(g, w) < KC.admm_tol(h)[name], name
-    assert AK.kinv_resident(12 * h, 20 * h, kinv_bf16) == (h < (28 if kinv_bf16 else 20))
+    assert AK.kinv_resident(12 * h, 20 * h, kinv_bf16) == (
+        h <= KC.ADMM_LAST_RESIDENT_H[kinv_bf16])
+
+
+@pytest.mark.parametrize("B,h,iters,kinv_bf16,resident", KC.ADMM_LIMIT_CASES)
+def test_admm_kernel_register_and_resident_limits(emulated, B, h, iters, kinv_bf16,
+                                                  resident):
+    """n = 12 h below, at and past the columns of K^{-1} held in registers,
+    on both sides of the change from J to J / 2 register columns and of
+    the resident limits, from non-zero starts: KC.admm_tol(h)."""
+    args = KC.admm_case(B, h, seed=h + 7 * B, device="cpu", warm=True)
+    assert AK.kinv_resident(12 * h, 20 * h, kinv_bf16) == resident
+    got = AK._fused_admm_iterations_cuda(*args, iters=iters, kinv_bf16=kinv_bf16)
+    want = AK.fused_admm_iterations_reference(*args, iters=iters, kinv_bf16=kinv_bf16)
+    for g, w, name in zip(got, want, "xzy"):
+        assert torch.isfinite(g).all()
+        assert _maxdiff(g, w) < KC.admm_tol(h)[name], name
+
+
+@pytest.mark.parametrize("kinv_bf16", [False, True])
+def test_admm_kernel_two_variables_a_lane(emulated, kinv_bf16):
+    """h = 81 (n = 972, two variables a lane, K^{-1} streamed), two
+    iterations: held to the float64 plain version on the same operator, no
+    farther than KC.ADMM_F64_FACTOR times the float32 plain version (the
+    reason is stated there)."""
+    h = KC.ADMM_TWO_A_LANE_H
+    args = KC.admm_case(1, h, seed=h + 7, device="cpu", warm=True)
+    got = AK._fused_admm_iterations_cuda(*args, iters=2, kinv_bf16=kinv_bf16)
+    want = AK.fused_admm_iterations_reference(*args, iters=2, kinv_bf16=kinv_bf16)
+    exact = AK.fused_admm_iterations_reference(*(a.double() for a in args), iters=2,
+                                               kinv_bf16=kinv_bf16)
+    for g, w, e, name in zip(got, want, exact, "xzy"):
+        assert torch.isfinite(g).all()
+        assert _maxdiff(g.double(), e) <= KC.ADMM_F64_FACTOR * _maxdiff(w.double(), e), name
+
+
+def test_admm_kernel_takes_at_most_max_variables():
+    """n = 1932 (h = 161), past AK.MAX_VARIABLES (32 warps of 30 variables,
+    two a thread): the wrapper raises before anything is built or launched
+    and counts no launch."""
+    n = AK.MAX_VARIABLES + 12
+    m = 5 * n // 3
+    args = [torch.zeros(1, n, n)] + [torch.zeros(1, w) for w in (n, m, m, m)]
+    args += [torch.zeros(5, 3), torch.zeros(1, n), torch.zeros(1, m), torch.zeros(1, m)]
+    before = AK.LAUNCHES
+    with pytest.raises(ValueError, match="n <= 1920"):
+        AK._fused_admm_iterations_cuda(*args, iters=1)
+    assert AK.LAUNCHES == before
+
+
+def test_kinv_resident_matches_the_shared_memory_sizes(emulated):
+    """admm_resident (the kernel's own rule) at h = 1..40: resident up to
+    KC.ADMM_LAST_RESIDENT_H (22 in float32, 30 in bfloat16) and not past
+    it, where the shared memory the kernel reports for holding K^{-1} on
+    chip first exceeds a block's on sm_90."""
+    for bf16 in (False, True):
+        last = KC.ADMM_LAST_RESIDENT_H[bf16]
+        flags = [AK.kinv_resident(12 * h, 20 * h, bf16) for h in range(1, 41)]
+        assert flags == [h <= last for h in range(1, 41)]
+        size = [AK.kinv_shared_bytes(12 * h, 20 * h, bf16) for h in (last, last + 1)]
+        assert size[0] <= KC.SMEM_PER_BLOCK < size[1]

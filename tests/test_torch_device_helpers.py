@@ -19,6 +19,12 @@ the card by nvcc (``gpu`` marker) and for the CPU through
   On the card this runs the kernel's own estimate (``__fdividef``); the
   emulation's estimate is the exact quotient, so there it checks the
   refinement as compiled.
+- float4 loads from dynamic shared memory filled by 16-byte ``cp.async``
+  (``admm.cu``'s rhs broadcasts): the base is 16-byte aligned and every
+  quad reads back the floats copied in, as each lane's own and as a
+  broadcast; a size the check does not take returns cudaErrorInvalidValue.
+- ``__fmul_rn`` (the products ``admm.cu`` keeps out of a contraction):
+  bit for bit the IEEE float32 product (numpy's).
 """
 
 import _cuda_checks
@@ -68,3 +74,29 @@ def test_div_rn_is_ieee_division(device):
                       n=a.size)
     want = a / b
     assert np.array_equal(out.cpu().numpy().view(np.uint32), want.view(np.uint32))
+
+
+def test_float4_loads_from_dynamic_shared_memory(device):
+    n = 4 * 75
+    a = torch.from_numpy(np.random.default_rng(3).standard_normal(n).astype(np.float32))
+    out = torch.full((n + 5,), float("nan"), device=device)
+    lib = _cuda_checks.load(device)
+    _cuda_checks.call(lib, "float4_smem_check", a.to(device), out, n=n)
+    got = out.cpu()
+    assert torch.equal(got[:n], a)
+    assert torch.equal(got[n:n + 4], a[:4])
+    assert float(got[n + 4]) == 0.0
+    with pytest.raises(RuntimeError, match="cudaError_t 1"):
+        _cuda_checks.call(lib, "float4_smem_check", a.to(device), out, n=n - 2)
+
+
+def test_fmul_rn_is_the_float32_product(device):
+    n = 1200 if device.type == "cpu" else 1 << 20
+    rng = np.random.default_rng(14)
+    a, b = (rng.standard_normal(n).astype(np.float32) * 10.0 ** rng.integers(-20, 20, n)
+            for _ in range(2))
+    a, b = a.astype(np.float32), b.astype(np.float32)
+    out = torch.empty(n, dtype=torch.float32, device=device)
+    _cuda_checks.call(_cuda_checks.load(device), "fmul_rn_check",
+                      torch.from_numpy(a).to(device), torch.from_numpy(b).to(device), out, n=n)
+    assert np.array_equal(out.cpu().numpy().view(np.uint32), (a * b).view(np.uint32))

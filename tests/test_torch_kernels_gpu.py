@@ -132,7 +132,7 @@ def test_stagewise_stream_kernel_matches_plain_version(cuda, B, h, per_step_c):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B", [1, 37, 2048])
+@pytest.mark.parametrize("B", [1, 37, 2048, 5, 33])
 def test_srb_build_dump_kernel_matches_build(cuda, B):
     """The dump kernel against srb_assemble and against build_stagewise's
     Ad, Bd, c: 1e-6 (the same entries in exact f32; only the 3x3 products
@@ -305,7 +305,8 @@ def test_kf_kernel_matches_plain_version_from_a_cold_start(cuda):
     (5, 28, 30, True, True)])
 def test_admm_kernel_matches_plain_version(cuda, B, h, iters, warm, kinv_bf16):
     """Both storage variants, zero and non-zero starts, resident horizons
-    and the two just past them: KC.admm_tol(h) (x and z 2e-4 h, y 1e-5).  One
+    and the two just past the first design's resident sizes (h = 20 f32 and
+    28 bf16, resident now): KC.admm_tol(h) (x and z 2e-4 h, y 1e-5).  One
     launch per call."""
     args = KC.admm_case(B, h, seed=h + B, device=cuda, warm=warm)
     before = AK.LAUNCHES
@@ -316,6 +317,60 @@ def test_admm_kernel_matches_plain_version(cuda, B, h, iters, warm, kinv_bf16):
     for g, w, name in zip(got, want, "xzy"):
         assert bool(torch.isfinite(g).all())
         assert _maxdiff(g, w) < KC.admm_tol(h)[name], name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,h,iters,kinv_bf16,resident", KC.ADMM_LIMIT_CASES)
+def test_admm_kernel_register_and_resident_limits(cuda, B, h, iters, kinv_bf16, resident):
+    """n = 12 h below, at and past the columns of K^{-1} held in registers,
+    on both sides of the change from J to J / 2 register columns and of
+    the resident limits, at 37 or 5 instances: KC.admm_tol(h)."""
+    B = 37 if B > 1 else 5
+    args = KC.admm_case(B, h, seed=h + 7 * B, device=cuda, warm=True)
+    assert AK.kinv_resident(12 * h, 20 * h, kinv_bf16) == resident
+    got = AK.fused_admm_iterations(*args, iters=iters, kinv_bf16=kinv_bf16)
+    want = AK.fused_admm_iterations_reference(*args, iters=iters, kinv_bf16=kinv_bf16)
+    for g, w, name in zip(got, want, "xzy"):
+        assert bool(torch.isfinite(g).all())
+        assert _maxdiff(g, w) < KC.admm_tol(h)[name], name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kinv_bf16", [False, True])
+def test_admm_kernel_two_variables_a_lane(cuda, kinv_bf16):
+    """h = 81 (two variables a lane, K^{-1} streamed), three instances, two
+    iterations: no farther from the float64 plain version than
+    KC.ADMM_F64_FACTOR times the float32 plain version."""
+    h = KC.ADMM_TWO_A_LANE_H
+    args = KC.admm_case(3, h, seed=h + 21, device=cuda, warm=True)
+    got = AK.fused_admm_iterations(*args, iters=2, kinv_bf16=kinv_bf16)
+    want = AK.fused_admm_iterations_reference(*args, iters=2, kinv_bf16=kinv_bf16)
+    exact = AK.fused_admm_iterations_reference(*(a.double() for a in args), iters=2,
+                                               kinv_bf16=kinv_bf16)
+    for g, w, e, name in zip(got, want, exact, "xzy"):
+        assert bool(torch.isfinite(g).all())
+        assert _maxdiff(g.double(), e) <= KC.ADMM_F64_FACTOR * _maxdiff(w.double(), e), name
+
+
+@pytest.mark.gpu
+def test_kinv_resident_matches_the_shared_memory_sizes(cuda):
+    """The built kernel's resident rule at h = 1..40: resident up to
+    KC.ADMM_LAST_RESIDENT_H and not past it, where the shared memory it
+    reports for holding K^{-1} on chip first exceeds the card's opt-in
+    limit a block (KC.SMEM_PER_BLOCK); and a launch at each last resident
+    horizon, which takes all of that shared memory."""
+    optin = torch.cuda.get_device_properties(cuda).shared_memory_per_block_optin
+    assert optin == KC.SMEM_PER_BLOCK
+    for bf16 in (False, True):
+        last = KC.ADMM_LAST_RESIDENT_H[bf16]
+        flags = [AK.kinv_resident(12 * h, 20 * h, bf16) for h in range(1, 41)]
+        assert flags == [h <= last for h in range(1, 41)]
+        size = [AK.kinv_shared_bytes(12 * h, 20 * h, bf16) for h in (last, last + 1)]
+        assert size[0] <= optin < size[1]
+        args = KC.admm_case(2, last, seed=last, device=cuda, warm=True)
+        got = AK.fused_admm_iterations(*args, iters=3, kinv_bf16=bf16)
+        want = AK.fused_admm_iterations_reference(*args, iters=3, kinv_bf16=bf16)
+        assert _maxdiff(got[0], want[0]) < KC.admm_tol(last)["x"]
 
 
 @pytest.mark.gpu
