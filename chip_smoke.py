@@ -39,7 +39,8 @@ result line) when it fails:
    tick alone, over two-period chains (bench.py's b=1 lines);
 6. hold the caller-built stagewise kernels against their plain versions:
    fused_stagewise_solve (per-step c at the predictive path's shape, a
-   ragged long-horizon batch with a shared c, dense Ad, and a dense-Ad case
+   shared c at the tunable period's (B = 2048, h = 10), a ragged
+   long-horizon batch with a shared c, dense Ad, and a dense-Ad case
    whose warm Newton-Schulz seeds fail the gate, so that the cold restart
    runs), the streamed
    solve at h = 128 and 72 (with the KKT residuals of both answers), and
@@ -81,7 +82,34 @@ result line) when it fails:
    -> mpc_step -> srb_sim.step: one fused_admm_iterations launch per period
    and no stagewise launch, the warm KKT audit with qp_admm.kkt_residuals
    (6e-3 / 1e-3), then the same line with pallas_bf16_kinv=True, audited
-   and printed beside it (not gated).
+   and printed beside it (not gated);
+11. the paper's experiment on the main path (tests/test_closed_loop.py:69-92):
+   loop.rollout of the bench trot at B = 2048 through the fused-build kernel
+   for 800 periods per arm under the reference disturbance, the adaptive arm
+   ("ls" on the discrete residual) against the baseline ("faithful" on the
+   reference residual, never released): one fused_stagewise_solve_srb launch
+   per period; instance 0 (gait phase 0) meets the reference test's gates
+   (vx-rms ratio over periods 500 on under 0.65, fitted frequency within
+   0.02 of 0.33 Hz, amplitude 0.8-1.8), the batch's median ratio is under
+   0.65, and p5/p50/p95 of the ratio are printed;
+12. ls6 under a lateral wrench (tests/test_estimator.py:233-268): the same
+   at B = 256 for 700 periods per arm under WrenchDisturbance component 4
+   = -0.6 + sin(2 pi 0.4 t), ls6 against the frozen faithful baseline; the
+   median vy-rms ratio over periods 450 on is under 0.7;
+13. (a) the live-tunable parameters at B = 2048: TunableParams.from_config
+   against the untuned fused-build period, then z weight x10, alpha 4e-4
+   and f_max 60 written into the same tensors (the forces change, every f_z
+   within 60 + 1e-3, one fused_stagewise_solve launch per period and no
+   fused-build launch), then swing_height 0.09 -> 0.18 (the swing apex rises
+   by more than 0.01 m); (b) the condensed line at B = 2048 with per-instance
+   z weights 5 / 50 / 500 / 5000 by quarter (one fused_admm_iterations launch
+   per period, forces that differ between the quarters, the KKT audit,
+   the z-weight-5000 quarter's primal residual to SWEEP_W5000_PRIMAL);
+   (c) the GO1 constants through loop.rollout, 40 periods at B = 256 (body
+   height within 0.05 of 0.29, every state finite).  The four arms of 11
+   and 12 run side by side, each in a process of its own (spawned, and
+   joined before 13), since every period is host-bound.  11-13 print their
+   wall seconds, their periods' ms and the device's busy share.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 object per kernel with its times and bound, and
@@ -166,6 +194,26 @@ ADMM_CASES = ((BATCH, HORIZON, ADMM_ITERS, False, False), (BATCH, HORIZON, ADMM_
               (1, HORIZON, ADMM_ITERS, True, False), (5, 20, ADMM_ITERS, True, False),
               (5, 28, ADMM_ITERS, True, True), (5, 23, ADMM_ITERS, True, False),
               (5, 31, ADMM_ITERS, True, True))
+# slice 5: the paper's adaptive-vs-baseline experiment at the bench's batch
+# and solver (the reference's gates, tests/test_closed_loop.py:69-92: vx rms
+# over periods 500 on), ls6 under the lateral wrench (its gate,
+# tests/test_estimator.py:233-268: vy rms over periods 450 on), the
+# tunables, the per-instance weight sweep and the GO1 (40 periods, the
+# reference's test_go1_model_pipeline)
+EXP_PERIODS, EXP_FROM, EXP_RATIO = 800, 500, 0.65
+LAT_BATCH, LAT_PERIODS, LAT_FROM, LAT_RATIO = 256, 700, 450, 0.7
+TUNE_WARM, TUNE_TIMED, SWEEP_PERIODS = 10, 3, 8
+GO1_BATCH, GO1_PERIODS, GO1_VX = 256, 40, 0.2
+# the weight sweep's KKT audit: the quarters at z weights 5 / 50 / 500 meet the
+# bench's gates; at 5000 the ADMM-30 with the bench's rho misses the primal
+# gate in the reference too (tools/slice5_reference.py sweep, JAX's XLA path
+# on the CPU, B = 832: 0.0079-0.0148 over periods 1-20), so that quarter is
+# held to JAX's worst plus a third
+SWEEP_W5000_PRIMAL = 0.02
+# the untuned fused-build period against the tuned caller-built one: each
+# kernel is held to its plain version at TOL["U"], and the two plain
+# versions lie ~2e-4 apart (tests/test_torch_tunable.py), allowed 1e-3
+TUNE_TOL = 2 * TOL["U"] + 1e-3
 # H100 SXM: HBM3 rate and float32 (non-tensor-core) peak, NVIDIA data sheet
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
@@ -580,8 +628,11 @@ def compare_solve_kernels(device, card: str) -> dict:
     # ---- fused_stagewise_solve ----
     name = "fused_stagewise_solve"
     worst = 0.0
+    # the last case is the predictive path's shape (timed); the one before it
+    # the tunable period's (slice 5: shared c)
     for B, h, per_step_c, dense_ad, seed in ((37, 48, False, False, 201),
                                              (37, HORIZON, True, True, 202),
+                                             (BATCH, HORIZON, False, False, 203),
                                              (BATCH, HORIZON, True, False, 200)):
         args, kw, stats, err = solve_case(
             name, SK.fused_stagewise_solve, SK.fused_stagewise_solve_reference, TOL,
@@ -791,11 +842,12 @@ def trot_inputs(device, batch: int = BATCH, horizon: int = HORIZON,
     return ctrl, plant, cmd, gait, dist
 
 
-def make_period(device, mpc_cfg, est_cfg, solver):
+def make_period(device, mpc_cfg, est_cfg, solver, tunable=None):
     """bench.py's step for one configuration: solve, hold the first-step
     forces over the period, swing feet glide toward a half-stance Raibert
     touchdown.  period(ctrl, plant, cmd, gait, dist, return_qp=False) ->
-    (ctrl, plant, forces, qp or None)."""
+    (ctrl, plant, forces, qp or None).  tunable: TunableParams for every
+    solve."""
     import torch
 
     from quad_periodic_mpc_tpu_torch.config import LoopConfig
@@ -814,7 +866,7 @@ def make_period(device, mpc_cfg, est_cfg, solver):
         obs = S.observe(plant)
         ctrl = M.setup_command(ctrl, cmd, loop_cfg)
         out = M.mpc_step(ctrl, obs, cmd, gait, plant.t, mpc_cfg, loop_cfg,
-                         est_cfg, solver, return_qp=return_qp)
+                         est_cfg, solver, tunable=tunable, return_qp=return_qp)
         ctrl, forces = out[0], out[1]
         seg = G.segment_index(gait, ctrl.iteration, loop_cfg.iterations_between_mpc)
         stance = G.mpc_table(gait, seg, 1)[..., 0, :].float()
@@ -1522,6 +1574,347 @@ def slice4(device, card: str) -> dict:
     return records
 
 
+# ---------------------------------------------------------------------------
+# slice 5: the estimator arms, tunables, GO1
+# ---------------------------------------------------------------------------
+
+def _slice5_configs(mode: str = "stagewise"):
+    from quad_periodic_mpc_tpu_torch.config import ADMMConfig, LoopConfig, MPCConfig
+
+    return MPCConfig(horizon=HORIZON), LoopConfig(), ADMMConfig(
+        iterations=ADMM_ITERS, backend="pallas", formulation=mode)
+
+
+def rollout_arm(device, card: str, tag: str, B: int, periods: int, est_cfg, dist=None,
+                vx: float = VX, model=None, profile: bool = False):
+    """loop.rollout of the bench trot at batch B for `periods` MPC periods
+    through the fused-build kernel, the stagewise launch counts set to 0
+    just before and read just after: one fused_stagewise_solve_srb launch a
+    period and no other.  dist replaces the reference disturbance; vx the
+    commanded speed; model the robot (A1 by default); profile: then two
+    more periods under the profiler.  Returns (carry, trace, launches)."""
+    import torch
+
+    from quad_periodic_mpc_tpu_torch.control import loop as L
+    from quad_periodic_mpc_tpu_torch.models.a1 import A1
+    from quad_periodic_mpc_tpu_torch.ops.cuda import stagewise_kernel as SK
+
+    mpc_cfg, loop_cfg, solver = _slice5_configs()
+    ctrl, plant, cmd, gait, ref_dist = trot_inputs(device, B)
+    if vx != VX:
+        ctrl = ctrl._replace(x_vel_des=torch.full_like(ctrl.x_vel_des, vx))
+        cmd = cmd._replace(vx=torch.full_like(cmd.vx, vx))
+    torch.cuda.synchronize()
+    reset_stagewise_counts()
+    t0 = time.perf_counter()
+    carry, trace = L.rollout(periods, plant, ctrl, cmd, gait,
+                             ref_dist if dist is None else dist, mpc_cfg, loop_cfg, est_cfg,
+                             solver, model=model or A1)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = dict(SK.LAUNCHES)
+    launches = counts["fused_stagewise_solve_srb"]
+    print(f"[{tag}] loop.rollout B={B} {est_cfg.mode}/{est_cfg.residual}: {periods} periods "
+          f"in {secs:.1f} s ({1e3 * secs / periods:.1f} ms/period), fused_stagewise_solve_srb "
+          f"launches {launches} on {card}")
+    check(launches == periods and sum(counts.values()) == launches,
+          f"{tag}: expected {periods} fused-build launches and no other, counted {counts}")
+    check(bool(torch.isfinite(trace.x).all()) and bool(torch.isfinite(trace.forces).all()),
+          f"{tag}: non-finite rollout")
+    if profile:
+        def step(c, p):
+            out = L.rollout(1, p, c, cmd, gait, ref_dist if dist is None else dist, mpc_cfg,
+                            loop_cfg, est_cfg, solver, model=model or A1)[0]
+            return out.ctrl, out.plant
+
+        profile_periods(step, carry.ctrl, carry.plant, n=2)
+    return carry, trace, launches
+
+
+def _ratio_line(tag: str, what: str, ratio) -> float:
+    import torch
+
+    q = torch.quantile(ratio.double(), torch.tensor([0.05, 0.5, 0.95], dtype=torch.float64,
+                                                    device=ratio.device))
+    print(f"[{tag}] {what} ratio over the batch: p5 {float(q[0]):.4f}, p50 {float(q[1]):.4f}, "
+          f"p95 {float(q[2]):.4f}, max {float(ratio.max()):.4f}")
+    return float(q[1])
+
+
+def lateral_wrench(B: int, device):
+    """WrenchDisturbance.zero with component 4 (y acceleration) -0.6 +
+    sin(2 pi 0.4 t): tests/test_estimator.py:233-268's disturbance."""
+    import torch
+
+    from quad_periodic_mpc_tpu_torch.sim import srb_sim as S
+
+    dist = S.WrenchDisturbance.zero((B,), device=device)
+    col = lambda t, v: torch.cat([t[:, :4], torch.full_like(t[:, 4:5], v), t[:, 5:]], dim=1)
+    return dist._replace(static=col(dist.static, -0.6), amp=col(dist.amp, 1.0),
+                         freq=col(dist.freq, 0.4))
+
+
+def _arm_job(job: dict) -> dict:
+    """One arm of phase 11 or 12 in a process of its own: rollout_arm (its
+    launch count read in that process), then what the phase's gates read,
+    on the CPU: the vx- and vy-rms over periods job["from"] on, instance
+    0's fit."""
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    import quad_periodic_mpc_tpu_torch  # noqa: F401  (sets the f32 policy)
+    from quad_periodic_mpc_tpu_torch.config import EstimatorConfig
+
+    device = torch.device(job["device"])
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist = lateral_wrench(job["B"], device) if job["lateral"] else None
+    carry, trace, launches = rollout_arm(device, job["card"], job["tag"], job["B"],
+                                         job["periods"], EstimatorConfig(**job["est"]), dist,
+                                         profile=True)
+    x, est = trace.x[:, job["from"]:], carry.ctrl.est
+    return {"launches": launches,
+            "vx_rms": ((x[..., 9] - VX) ** 2).mean(dim=1).sqrt().cpu(),
+            "vy_rms": (x[..., 10] ** 2).mean(dim=1).sqrt().cpu(),
+            "f_hat": float(est.est_freq[0]), "amp_hat": float(est.est_amp[0]),
+            "f6": float(est.est6_freq[0, 4]), "stat6": float(est.est6_stat[0, 4])}
+
+
+def estimator_experiments(device, card: str, exp_B: int = BATCH,
+                          exp_periods: int = EXP_PERIODS, lat_B: int = LAT_BATCH,
+                          lat_periods: int = LAT_PERIODS) -> dict:
+    """Phases 11 and 12, their four arms side by side, each in a spawned
+    process (every period is host-bound, so one process would run them one
+    after another; the card, 6 % busy with one, takes the four).
+
+    Phase 11, the paper's experiment (tests/test_closed_loop.py:69-92) on
+    the main path: the bench trot at batch exp_B under F_x = -10 + 15 sin(2
+    pi 0.33 t) N, the periodic-adaptive MPC ("ls" on the discrete residual)
+    against the non-adaptive baseline ("faithful" on the reference's
+    residual, never released).  Instance 0 (gait phase 0, the reference
+    test's robot) meets the reference test's gates, and the batch's median
+    vx-rms ratio is under EXP_RATIO.
+
+    Phase 12, ls6 under a lateral wrench (tests/test_estimator.py:233-268):
+    the bench trot at batch lat_B under lateral_wrench, ls6 on the discrete
+    residual against the same baseline; the batch's median vy-rms ratio over
+    periods LAT_FROM on is under LAT_RATIO.
+
+    Returns the fused-build launches of each phase's two arms."""
+    import multiprocessing
+
+    t0 = time.perf_counter()
+    baseline = dict(mode="faithful", residual="reference", freeze_after=10 ** 9)
+    arms = {("experiment", "adaptive"): (exp_B, exp_periods, EXP_FROM,
+                                         dict(mode="ls", residual="discrete"), False),
+            ("experiment", "baseline"): (exp_B, exp_periods, EXP_FROM, baseline, False),
+            ("lateral", "ls6"): (lat_B, lat_periods, LAT_FROM,
+                                 dict(mode="ls6", residual="discrete"), True),
+            ("lateral", "baseline"): (lat_B, lat_periods, LAT_FROM, baseline, True)}
+    jobs = [{"device": str(device), "card": card, "tag": f"{phase} {arm}", "B": B,
+             "periods": n, "from": frm, "est": est, "lateral": lat}
+            for (phase, arm), (B, n, frm, est, lat) in arms.items()]
+    with concurrent.futures.ProcessPoolExecutor(
+            len(jobs), mp_context=multiprocessing.get_context("spawn")) as pool:
+        out = dict(zip(arms, pool.map(_arm_job, jobs)))
+    print(f"[experiment] phases 11 and 12, four arms side by side, took "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    tag, ad, off = "experiment", out["experiment", "adaptive"], out["experiment", "baseline"]
+    ratio = ad["vx_rms"] / off["vx_rms"]
+    print(f"[{tag}] instance 0: vx rms over periods {EXP_FROM}-{exp_periods} adaptive "
+          f"{float(ad['vx_rms'][0]):.5f}, baseline {float(off['vx_rms'][0]):.5f}, ratio "
+          f"{float(ratio[0]):.4f} (gate {EXP_RATIO}); f_hat {ad['f_hat']:.5f} Hz (gate |f - 0.33| "
+          f"< 0.02), amp_hat {ad['amp_hat']:.4f} m/s^2 (gate 0.8-1.8)")
+    median = _ratio_line(tag, "adaptive/baseline vx-rms", ratio)
+    check(float(ratio[0]) < EXP_RATIO, f"{tag}: instance 0's ratio {float(ratio[0])}")
+    check(abs(ad["f_hat"] - 0.33) < 0.02, f"{tag}: instance 0's fitted frequency {ad['f_hat']}")
+    check(0.8 < ad["amp_hat"] < 1.8, f"{tag}: instance 0's fitted amplitude {ad['amp_hat']}")
+    check(median < EXP_RATIO, f"{tag}: the batch's median ratio {median}")
+
+    tag, on, off = "lateral", out["lateral", "ls6"], out["lateral", "baseline"]
+    print(f"[{tag}] ls6 fit of instance 0, component 4: f {on['f6']:.4f} Hz (true 0.4), "
+          f"offset {on['stat6']:.4f} (true -0.6)")
+    median = _ratio_line(tag, "ls6/baseline vy-rms", on["vy_rms"] / off["vy_rms"])
+    check(median < LAT_RATIO, f"{tag}: the batch's median ratio {median} (gate {LAT_RATIO})")
+    return {phase: out[phase, a]["launches"] + out[phase, "baseline"]["launches"]
+            for phase, a in (("experiment", "adaptive"), ("lateral", "ls6"))}
+
+
+def tunable_period(device, card: str, B: int = BATCH) -> dict:
+    """Phase 13a, the live-tunable parameters on the main path's solver:
+    the bench trot at batch B after TUNE_WARM untuned periods; from one
+    state the untuned period (fused build) against a period with
+    TunableParams.from_config (caller-built solve) within TUNE_TOL; then the
+    z weight x10, alpha 4e-4 and f_max 60 written into the same tensors
+    (the forces change, every stance f_z within 60 + 1e-3) and TUNE_TIMED
+    counted periods (one fused_stagewise_solve launch each, no fused-build
+    launch); then swing_height 0.09 -> 0.18 written in, the swing apex up by
+    more than 0.01 m.  Returns the counted launches."""
+    import torch
+
+    from quad_periodic_mpc_tpu_torch.config import EstimatorConfig, SwingConfig, TunableParams
+    from quad_periodic_mpc_tpu_torch.control import mpc as M
+    from quad_periodic_mpc_tpu_torch.models.a1 import A1
+    from quad_periodic_mpc_tpu_torch.ops.cuda import stagewise_kernel as SK
+    from quad_periodic_mpc_tpu_torch.sim import srb_sim as S
+
+    tag, t0 = "tunable", time.perf_counter()
+    mpc_cfg, loop_cfg, solver = _slice5_configs()
+    est_cfg, swing_cfg = EstimatorConfig(), SwingConfig()
+    tun = TunableParams.from_config(mpc_cfg, loop_cfg, est_cfg, swing_cfg, device=device)
+    untuned = make_period(device, mpc_cfg, est_cfg, solver)
+    tuned = make_period(device, mpc_cfg, est_cfg, solver, tunable=tun)
+    ctrl, plant, cmd, gait, dist = trot_inputs(device, B)
+    for _ in range(TUNE_WARM):
+        ctrl, plant, _, _ = untuned(ctrl, plant, cmd, gait, dist)
+    _, _, f_plain, _ = untuned(ctrl, plant, cmd, gait, dist)
+    _, _, f_default, _ = tuned(ctrl, plant, cmd, gait, dist)
+    gap = _maxdiff(f_plain, f_default)
+    print(f"[{tag}] B={B}: TunableParams.from_config against the untuned fused-build period: "
+          f"max|dU| {gap:.3g} N (tol {TUNE_TOL})")
+    check(gap <= TUNE_TOL, f"{tag}: the default tunables moved the forces by {gap}")
+
+    w = tun.weights.clone()
+    w[5] *= 10.0
+    tun.weights.copy_(w)
+    tun.alpha.copy_(torch.tensor(4e-4))
+    tun.f_max.copy_(torch.tensor(60.0))
+    torch.cuda.synchronize()
+    reset_stagewise_counts()
+    times, fz_max, first = [], 0.0, None
+    for _ in range(TUNE_TIMED):
+        t1 = time.perf_counter()
+        ctrl, plant, forces, _ = tuned(ctrl, plant, cmd, gait, dist)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t1))
+        first = forces if first is None else first
+        fz_max = max(fz_max, float(forces[..., 2].max()))
+    counts = dict(SK.LAUNCHES)
+    changed = _maxdiff(first, f_plain)      # the same state as f_plain's
+    print(f"[{tag}] retuned (z weight x10, alpha 4e-4, f_max 60 by copy_): {TUNE_TIMED} periods, "
+          f"median {statistics.median(times):.2f} ms/period, the first period's forces "
+          f"{changed:.3g} N from the untuned solve, largest f_z {fz_max:.5f} N (limit 60 + "
+          f"1e-3); launches {counts} on {card}")
+    launches = counts["fused_stagewise_solve"]
+    check(launches == TUNE_TIMED and sum(counts.values()) == launches,
+          f"{tag}: expected {TUNE_TIMED} fused_stagewise_solve launches and no other, "
+          f"counted {counts}")
+    profile_periods(lambda c, p: tuned(c, p, cmd, gait, dist)[:2], ctrl, plant, n=2)
+    check(changed > 1.0, f"{tag}: the retune moved the forces by only {changed}")
+    check(fz_max <= 60.0 + 1e-3, f"{tag}: a stance f_z of {fz_max} exceeds the retuned f_max")
+
+    obs = S.observe(plant)
+    ctrl_s = M.setup_command(ctrl, cmd, loop_cfg)
+    swing = lambda: M.swing_update(ctrl_s, obs, cmd, gait, A1, swing_cfg, mpc_cfg, loop_cfg,
+                                   loop_cfg.swing_height, tunable=tun)[1]
+    low = swing()
+    tun.swing_height.copy_(torch.tensor(0.18))
+    high = swing()
+    rise = float((high.p_foot_des - low.p_foot_des)[..., 2].max())
+    print(f"[{tag}] swing_height 0.09 -> 0.18 by copy_: the swing apex rises by up to "
+          f"{rise:.4f} m ({int((low.swing_state > 0).sum())} swinging feet)")
+    check(rise > 0.01, f"{tag}: the swing apex rose by only {rise}")
+    print(f"[{tag}] phase 13a took {time.perf_counter() - t0:.1f} s")
+    return {"fused_stagewise_solve": launches}
+
+
+def weight_sweep(device, card: str, B: int = BATCH, periods: int = SWEEP_PERIODS) -> int:
+    """Phase 13b, per-instance tunables on the condensed line (backend
+    "pallas", ADMM-30): z weights 5 / 50 / 500 / 5000 over four quarters of
+    the batch, alpha 4e-5 and f_max 120 per instance; `periods` counted
+    periods (one fused_admm_iterations launch each), forces that differ
+    between the quarters at the same gait phase, and the warm KKT audit
+    (6e-3 / 1e-3; the primal residual of the z weight 5000 quarter to
+    SWEEP_W5000_PRIMAL).  Returns the counted launches."""
+    import torch
+
+    from quad_periodic_mpc_tpu_torch.config import EstimatorConfig, TunableParams
+    from quad_periodic_mpc_tpu_torch.ops import qp_admm
+    from quad_periodic_mpc_tpu_torch.ops.cuda import admm_kernel as AK
+
+    tag, t0 = "weight sweep", time.perf_counter()
+    mpc_cfg, loop_cfg, solver = _slice5_configs("condensed")
+    est_cfg = EstimatorConfig()
+    base = TunableParams.from_config(mpc_cfg, loop_cfg, est_cfg, device=device)
+    q = B // 4
+    w = base.weights.expand(B, 12).clone()
+    w[:, 5] = torch.tensor([5.0, 50.0, 500.0, 5000.0], device=device).repeat_interleave(q)
+    tun = base._replace(weights=w, alpha=torch.full((B,), 4e-5, device=device),
+                        f_max=torch.full((B,), 120.0, device=device))
+    period = make_period(device, mpc_cfg, est_cfg, solver, tunable=tun)
+    ctrl, plant, cmd, gait, dist = trot_inputs(device, B, formulation="condensed")
+    torch.cuda.synchronize()
+    AK.LAUNCHES = 0
+    before = all_launch_counts()
+    for _ in range(periods):
+        ctrl, plant, forces, _ = period(ctrl, plant, cmd, gait, dist)
+    torch.cuda.synchronize()
+    counts = all_launch_counts()
+    launches = counts.pop("fused_admm_iterations")
+    before.pop("fused_admm_iterations")
+    check(launches == periods and counts == before,
+          f"{tag}: expected {periods} fused_admm_iterations launches and no other, counted "
+          f"{launches} and {counts}")
+    check(bool(torch.isfinite(forces).all()) and bool(torch.isfinite(plant.x).all()),
+          f"{tag}: non-finite state")
+    profile_periods(lambda c, p: period(c, p, cmd, gait, dist)[:2], ctrl, plant, n=2)
+    # the first instance of each quarter at gait phase 0 (0, 624, 1040, 1664
+    # at B = 2048): the same start but for the weights
+    same_phase = [g * q + (-(g * q)) % 208 for g in range(4)]
+    gaps = [_maxdiff(forces[same_phase[g]], forces[same_phase[g + 1]]) for g in range(3)]
+    ctrl, plant, forces, qp = period(ctrl, plant, cmd, gait, dist, return_qp=True)
+    res = qp_admm.kkt_residuals(qp, ctrl.warm_x, ctrl.warm_z, ctrl.warm_y)
+    primal, dual = float(res["primal"].max()), float(res["dual"].max())
+    by_quarter = res["primal"].reshape(4, q).amax(dim=1)
+    print(f"[{tag}] condensed B={B} ADMM-{ADMM_ITERS}, z weights 5/50/500/5000 by quarter: "
+          f"{launches} fused_admm_iterations launches in {periods} periods; forces of instances "
+          f"{same_phase} (gait phase 0) apart by {', '.join(f'{g:.3g}' for g in gaps)} N; KKT "
+          f"audit of period {periods + 1}: primal max {primal:.3g} (by quarter "
+          f"{', '.join(f'{float(v):.3g}' for v in by_quarter)}), dual max {dual:.3g} (gates "
+          f"{KKT_PRIMAL} / {KKT_DUAL}; z weight 5000: {SWEEP_W5000_PRIMAL}) on {card}")
+    check(min(gaps) > 1e-2, f"{tag}: the weight groups' forces do not differ: {gaps}")
+    check(float(by_quarter[:3].max()) < KKT_PRIMAL and float(by_quarter[3]) < SWEEP_W5000_PRIMAL
+          and dual < KKT_DUAL, f"{tag}: KKT gate failed")
+    print(f"[{tag}] phase 13b took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def go1_rollout(device, card: str, B: int = GO1_BATCH, periods: int = GO1_PERIODS) -> int:
+    """Phase 13c, the GO1 constants through loop.rollout (the reference's
+    test_go1_model_pipeline at batch B): the trot at vx = 0.2, no
+    disturbance, `periods` periods on the fused-build kernel; every state
+    finite, the body height within 0.05 of 0.29.  Returns the launches."""
+    import torch
+
+    from quad_periodic_mpc_tpu_torch.config import EstimatorConfig
+    from quad_periodic_mpc_tpu_torch.models.a1 import GO1
+    from quad_periodic_mpc_tpu_torch.sim import srb_sim as S
+
+    tag, t0 = "go1", time.perf_counter()
+    carry, trace, launches = rollout_arm(
+        device, card, tag, B, periods, EstimatorConfig(),
+        dist=S.DisturbanceParams.zero((B,), device=device), vx=GO1_VX, model=GO1)
+    err = float((carry.plant.x[:, 5] - 0.29).abs().max())
+    print(f"[{tag}] body height after {periods} periods within {err:.4f} m of 0.29 (gate 0.05)")
+    check(err < 0.05, f"{tag}: body height {err} from 0.29")
+    print(f"[{tag}] phase 13c took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def slice5(device, card: str) -> dict:
+    """Phases 11-13.  Returns the launches of their counted runs, by path
+    and kernel."""
+    launches = estimator_experiments(device, card)
+    return {
+        "experiment": {"fused_stagewise_solve_srb": launches["experiment"]},
+        "lateral": {"fused_stagewise_solve_srb": launches["lateral"]},
+        "tunable": tunable_period(device, card),
+        "weight sweep": {"fused_admm_iterations": weight_sweep(device, card)},
+        "go1": {"fused_stagewise_solve_srb": go1_rollout(device, card)},
+    }
+
+
 def main() -> int:
     import torch
 
@@ -1573,6 +1966,12 @@ def main() -> int:
             check(rec["launches"] > 0, f"{rec.get('name', rec.get('path'))} was launched "
                   "on no driven path")
         slice4_records = slice4(device, card)
+        by_name = {r["name"]: r for r in (record, *solve_records.values(),
+                                          *slice4_records.values())}
+        for path, counts in slice5(device, card).items():
+            for name, n in counts.items():
+                check(n > 0, f"{name} was launched no time on the {path} path")
+                by_name[name].setdefault("launches_by_path", {})[path] = n
         if "jax" in sys.modules or "quad_periodic_mpc_tpu" in sys.modules:
             raise SmokeFailure("JAX or the JAX package was imported")
     except SmokeFailure as e:

@@ -1,8 +1,9 @@
 """Typed configuration for the PyTorch convex-MPC port.
 
 A copy of the reference package's frozen dataclasses (``MPCConfig``,
-``ADMMConfig``, ``PDIPConfig``, ``EstimatorConfig``, ``SwingConfig``,
-``LoopConfig``) with identical fields and defaults.  The port keeps its
+``ADMMConfig``, ``PDIPConfig``, ``EstimatorConfig``, ``GaitConfig``,
+``SwingConfig``, ``LoopConfig``) with identical fields and defaults, and of
+its live-tunable parameters (``TunableParams``) as tensors.  The port keeps its
 own copy instead of importing the JAX package, so it runs where JAX is
 not installed; ``tests/test_torch_helpers.py`` holds every default equal
 to the reference's, field by field.  The reasons behind each default are
@@ -12,7 +13,9 @@ documented at the reference definitions.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import NamedTuple, Tuple
+
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,6 +109,17 @@ class EstimatorConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class GaitConfig:
+    """Offset-duration gait timing in MPC segments over a period of
+    ``n_segments`` (Gait.cpp OffsetDurationGait)."""
+
+    n_segments: int = 20
+    offsets: Tuple[int, int, int, int] = (0, 10, 10, 0)        # trot
+    durations: Tuple[int, int, int, int] = (10, 10, 10, 10)
+    name: str = "trotting"
+
+
+@dataclasses.dataclass(frozen=True)
 class SwingConfig:
     """Swing trajectory + Raibert foot-placement parameters
     (ConvexMPCLocomotion.cpp:23,316,318)."""
@@ -133,3 +147,51 @@ class LoopConfig:
     @property
     def dt_mpc(self) -> float:
         return self.dt * self.iterations_between_mpc
+
+
+class TunableParams(NamedTuple):
+    """Live-tunable runtime parameters, the dynamic_reconfigure tier
+    (config/ros_dynamic_params.cfg): tensors passed as inputs, read only on
+    the device, so writing new values into the same tensors (``.copy_()``)
+    between two calls retunes the controller with no host read of a
+    tunable.  Leaves are scalars or (12,) and may carry leading batch dims
+    for per-instance tuning (a weight-sweep axis)."""
+
+    weights: torch.Tensor         # (..., 12) MPC state-cost diagonal Q
+    alpha: torch.Tensor           # (...,) force regularization
+    mu: torch.Tensor              # (...,) friction coefficient
+    f_max: torch.Tensor           # (...,) per-foot max normal force
+    x_drag_gain: torch.Tensor     # (...,) cmpc_x_drag
+    swing_height: torch.Tensor    # (...,) Swing_traj_height
+    bonus_swing: torch.Tensor     # (...,) cmpc_bonus_swing
+    p_rel_max: torch.Tensor       # (...,) foothold clamp
+    ema_smooth: torch.Tensor      # (...,) estimator smoothing EMA
+    ema_static: torch.Tensor      # (...,) static-estimator EMA
+
+    @staticmethod
+    def from_config(
+        mpc: MPCConfig = None,
+        loop: LoopConfig = None,
+        est: EstimatorConfig = None,
+        swing: SwingConfig = None,
+        dtype=torch.float32,
+        device="cuda",
+    ) -> "TunableParams":
+        """Defaults taken from the static configs."""
+        mpc = mpc or MPCConfig()
+        loop = loop or LoopConfig()
+        est = est or EstimatorConfig()
+        swing = swing or SwingConfig()
+        s = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
+        return TunableParams(
+            weights=s(mpc.weights),
+            alpha=s(mpc.alpha),
+            mu=s(mpc.mu),
+            f_max=s(mpc.f_max),
+            x_drag_gain=s(mpc.x_drag_gain),
+            swing_height=s(loop.swing_height),
+            bonus_swing=s(swing.bonus_swing),
+            p_rel_max=s(swing.p_rel_max),
+            ema_smooth=s(est.ema_smooth),
+            ema_static=s(est.ema_static),
+        )

@@ -5,8 +5,9 @@ The 500 Hz process loop against the analytic plant: an outer loop over
 MPC periods and an inner loop over the iterations_between_mpc control
 ticks (FSM_State_Locomotion.cpp:13).  The reference's ``lax.scan`` is a
 Python loop here.  Batched: a leading batch axis rolls out many scenarios
-in lockstep.  Heightmaps, ground functions and tunable parameters are not
-ported yet (ROADMAP.md Queue 1).
+in lockstep.  Live-tunable parameters go to every MPC step and swing
+update.  Heightmaps and ground functions are not ported yet (ROADMAP.md
+Queue 1).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from quad_periodic_mpc_tpu_torch.config import (
     LoopConfig,
     MPCConfig,
     SwingConfig,
+    TunableParams,
 )
 from quad_periodic_mpc_tpu_torch.control import mpc as mpc_ctrl
 from quad_periodic_mpc_tpu_torch.models.a1 import A1, RobotModel
@@ -107,7 +109,7 @@ def rollout(
     ctrl: mpc_ctrl.ControllerState,
     cmd: mpc_ctrl.Command,
     gait: gait_ops.GaitParams,
-    dist: srb_sim.DisturbanceParams,
+    dist,
     mpc_cfg: MPCConfig,
     loop_cfg: LoopConfig,
     est_cfg: EstimatorConfig,
@@ -117,14 +119,15 @@ def rollout(
     tick_balance: TickBalanceGains | None = None,
     heightmap=None,
     ground_fn=None,
-    tunable=None,
+    tunable: TunableParams | None = None,
 ) -> tuple[RolloutCarry, RolloutTrace]:
     """Run n_mpc_steps MPC periods (each = iterations_between_mpc ticks),
-    on the device of the given states."""
-    if heightmap is not None or ground_fn is not None or tunable is not None:
+    on the device of the given states.  dist: a ``DisturbanceParams`` or a
+    ``WrenchDisturbance``; tunable: ``TunableParams`` for every MPC step and
+    swing update (retune by writing into its tensors between calls)."""
+    if heightmap is not None or ground_fn is not None:
         raise NotImplementedError(
-            "terrain and tunable parameters are not ported yet, see "
-            "ROADMAP.md Queue 1")
+            "terrain is not ported yet, see ROADMAP.md Queue 1")
 
     def control_tick(carry: RolloutCarry, do_mpc: bool) -> RolloutCarry:
         plant, ctrl = carry
@@ -132,10 +135,11 @@ def rollout(
         ctrl = mpc_ctrl.setup_command(ctrl, cmd, loop_cfg)
         if do_mpc:
             ctrl, _ = mpc_ctrl.mpc_step(
-                ctrl, obs, cmd, gait, plant.t, mpc_cfg, loop_cfg, est_cfg, solver)
+                ctrl, obs, cmd, gait, plant.t, mpc_cfg, loop_cfg, est_cfg, solver,
+                tunable=tunable)
         ctrl, out = mpc_ctrl.swing_update(
             ctrl, obs, cmd, gait, model, swing_cfg, mpc_cfg, loop_cfg,
-            loop_cfg.swing_height)
+            loop_cfg.swing_height, tunable=tunable)
         stance = (out.swing_state <= 0).to(plant.x.dtype)
         forces = out.fr_des
         if tick_balance is not None:

@@ -6,8 +6,9 @@ takes one of the reference's state types (``ControllerState``,
 ``EstimatorState``, ``PlantState``, ``Command``, ``DisturbanceParams``,
 ``GaitParams``, ``FBState``, ``ArtState``, ``ContactInfo``, ``WBCInput``,
 ``ModelConstants``, ``StagewiseProblem``, ``KFState``, the estimation
-container's ``EstimatorState``, ``QPData``, ``ADMMState``) with array leaves of any kind that ``numpy.asarray``
-accepts, and builds the port's NamedTuple of tensors on the given device,
+container's ``EstimatorState``, ``QPData``, ``ADMMState``,
+``TunableParams``, ``WrenchDisturbance``, ``MixedGaitParams``) with array
+leaves of any kind that ``numpy.asarray`` accepts, and builds the port's NamedTuple of tensors on the given device,
 keeping each leaf's dtype (the tuple fields of ``ModelConstants`` stay
 Python values).  Nothing here imports JAX.
 """
@@ -17,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from quad_periodic_mpc_tpu_torch import config
 from quad_periodic_mpc_tpu_torch.control import mpc, wbc
 from quad_periodic_mpc_tpu_torch.estimation import container, kf
 from quad_periodic_mpc_tpu_torch.models import floating_base
@@ -58,8 +60,20 @@ def disturbance(src, device="cuda") -> srb_sim.DisturbanceParams:
     return _named(srb_sim.DisturbanceParams, src, device)
 
 
+def wrench_disturbance(src, device="cuda") -> srb_sim.WrenchDisturbance:
+    return _named(srb_sim.WrenchDisturbance, src, device)
+
+
 def gait_params(src, device="cuda") -> gait.GaitParams:
     return _named(gait.GaitParams, src, device)
+
+
+def mixed_gait_params(src, device="cuda") -> gait.MixedGaitParams:
+    return _named(gait.MixedGaitParams, src, device)
+
+
+def tunable_params(src, device="cuda") -> config.TunableParams:
+    return _named(config.TunableParams, src, device)
 
 
 def fb_state(src, device="cuda") -> floating_base.FBState:

@@ -6,16 +6,23 @@ round-tripped data (``residual_discrete``, or the reference's
 ``residual_f_ext``), pushes it into a sliding window, and
 ``update`` turns the window into the wrench the QP consumes:
 
+- mode "faithful" (the reference's shipped estimator, SolverMPC.cpp:692-814):
+  band-pass (Gaussian blurs at sigma_fast minus sigma_slow), FFT-peak fit
+  (``fit_sin``: frequency of the largest non-DC bin, amplitude sqrt(2) std,
+  phase 0) while window <= count <= freeze_after, compensation
+  amp + sin(2 pi f t + phase) [sic, SolverMPC.cpp:766], released to the QP
+  once count > freeze_after;
 - mode "ls" (the default): Gaussian blur (sigma_fast), FFT-peak frequency
   guess refined on a two-stage grid, and a linear least-squares fit of
   c + B sin(wt) + D cos(wt) (SolverMPC.cpp:1106-1235); released once
-  count >= ls_release.
+  count >= ls_release;
+- mode "ls6": the "ls" fit on every component of the 6-wrench residual,
+  component 3 mirrored into the scalar fields;
 - mode "static": the EMA'd raw residual (f_est_static, SolverMPC.cpp:798).
 - mode "off": nothing reaches the QP.
 
 ``predict_horizon`` evaluates the fit at every step of the MPC horizon
-(``EstimatorConfig.predictive``).  Modes "faithful" and "ls6" are not
-ported yet (ROADMAP.md Queue 1).
+(``EstimatorConfig.predictive``).
 """
 
 from __future__ import annotations
@@ -62,16 +69,22 @@ def init(batch: tuple = (), window: int = 400, dtype=torch.float32,
     )
 
 
-@functools.lru_cache(maxsize=16)
-def _gauss_band_matrix(sigma: float, length: int) -> np.ndarray:
-    """Banded correlation matrix (length, length + 2 radius) of the
-    normalized Gaussian kernel of radius ceil(3 sigma)
+@functools.lru_cache(maxsize=8)
+def _gauss_kernel(sigma: float) -> np.ndarray:
+    """Normalized Gaussian kernel, radius ceil(3 sigma)
     (gaussian_filter, SolverMPC.cpp:404-419)."""
     radius = int(np.ceil(3 * sigma))
     i = np.arange(-radius, radius + 1, dtype=np.float64)
     k = np.exp(-0.5 * i * i / (sigma * sigma))
-    k = k / k.sum()
-    M = np.zeros((length, length + 2 * radius), np.float64)
+    return k / k.sum()
+
+
+@functools.lru_cache(maxsize=16)
+def _gauss_band_matrix(sigma: float, length: int) -> np.ndarray:
+    """Banded correlation matrix (length, length + 2 radius) of
+    ``_gauss_kernel(sigma)``."""
+    k = _gauss_kernel(sigma)
+    M = np.zeros((length, length + k.shape[0] - 1), np.float64)
     for r in range(length):
         M[r, r: r + k.shape[0]] = k
     return M
@@ -94,6 +107,22 @@ class SinFit(NamedTuple):
     freq: torch.Tensor
     phase: torch.Tensor
     offset: torch.Tensor
+
+
+def fit_sin(times: torch.Tensor, smoothed: torch.Tensor) -> SinFit:
+    """FFT-peak sinusoid fit (fit_sin, SolverMPC.cpp:478-541): freq =
+    k / (n dt) at the largest |rfft| bin k excluding DC, amp = sqrt(2) std,
+    offset = mean, phase = 0."""
+    n = smoothed.shape[-1]
+    dt = times[..., 1] - times[..., 0]
+    mag = torch.abs(torch.fft.rfft(smoothed, dim=-1))
+    mag[..., 0] = -float("inf")          # exclude DC (SolverMPC.cpp:502-510)
+    k = torch.argmax(mag, dim=-1)
+    freq = k.to(smoothed.dtype) / (n * dt)
+    m = smoothed.mean(dim=-1)
+    s = torch.sqrt(((smoothed - m[..., None]) ** 2).mean(dim=-1))
+    return SinFit(amp=s * float(np.sqrt(2.0)), freq=freq,
+                  phase=torch.zeros_like(freq), offset=m)
 
 
 def fit_sin_ls(times: torch.Tensor, y: torch.Tensor):
@@ -181,12 +210,18 @@ def update(
     sim_time: torch.Tensor,
     f_ext: torch.Tensor,
     cfg: EstimatorConfig,
+    ema_smooth=None,
+    ema_static=None,
 ) -> tuple[EstimatorState, torch.Tensor]:
-    """One estimator step (per MPC solve).  Returns (new_state, f_for_qp)."""
-    if cfg.mode not in ("ls", "static", "off"):
-        raise NotImplementedError(
-            f"estimator mode {cfg.mode!r} is not ported yet, see ROADMAP.md "
-            "Queue 1")
+    """One estimator step (per MPC solve).  Returns (new_state, f_for_qp).
+    ema_smooth / ema_static: live-tunable tensor overrides of the config's
+    EMAs (``TunableParams``)."""
+    if cfg.mode not in ("faithful", "ls", "ls6", "static", "off"):
+        raise ValueError(f"unknown estimator mode {cfg.mode!r}")
+    if ema_smooth is None:
+        ema_smooth = cfg.ema_smooth
+    if ema_static is None:
+        ema_static = cfg.ema_static
     dtype = state.diffs.dtype
     times = torch.cat(
         [state.times[..., 1:], sim_time[..., None].to(dtype)], dim=-1)
@@ -195,14 +230,41 @@ def update(
     wrench_hist = torch.cat(
         [state.wrench_hist[..., 1:, :], f_ext[..., None, :].to(dtype)], dim=-2)
     count = state.count + 1
-    ema_smooth, ema_static = cfg.ema_smooth, cfg.ema_static
+    two_pi = torch.tensor(2.0 * np.pi, dtype=dtype, device=diffs.device)
+    have_fit = count >= cfg.window
+
+    if cfg.mode == "ls6":
+        # every residual component gets its own "ls" fit, the component on
+        # a trailing batch axis
+        y6 = gaussian_filter(wrench_hist.transpose(-1, -2), cfg.sigma_fast)
+        fit6, B6, D6 = fit_sin_ls(times[..., None, :], y6)
+        fit_active = have_fit[..., None]
+        est6_freq = torch.where(fit_active, fit6.freq, state.est6_freq)
+        est6_stat = torch.where(fit_active, fit6.offset, state.est6_stat)
+        est6_sin = torch.where(fit_active, B6, state.est6_sin)
+        est6_cos = torch.where(fit_active, D6, state.est6_cos)
+        wt6 = two_pi * est6_freq * sim_time[..., None]
+        comp6 = est6_stat + est6_sin * torch.sin(wt6) + est6_cos * torch.cos(wt6)
+        f_est = torch.where(fit_active, comp6, state.f_est)
+        new_state = state._replace(
+            times=times, diffs=diffs, wrench_hist=wrench_hist, count=count,
+            est6_freq=est6_freq, est6_stat=est6_stat, est6_sin=est6_sin,
+            est6_cos=est6_cos, f_est=f_est,
+            f_est_smoothed=ema_smooth * state.f_est_smoothed + (1.0 - ema_smooth) * f_est,
+            f_est_static=ema_static * state.f_est_static + (1.0 - ema_static) * f_ext,
+            # component 3 mirrored into the scalar telemetry fields
+            est_freq=est6_freq[..., 3], est_stat=est6_stat[..., 3],
+            est_sin=est6_sin[..., 3], est_cos=est6_cos[..., 3],
+            est_amp=torch.sqrt(est6_sin[..., 3] ** 2 + est6_cos[..., 3] ** 2),
+        )
+        release = count >= cfg.ls_release
+        return new_state, torch.where(release[..., None], f_est, torch.zeros_like(f_est))
 
     f_est_static = state.f_est_static.clone()
     f_est_static[..., 3] = (
         ema_static * state.f_est_static[..., 3]
         + (1.0 - ema_static) * f_ext[..., 3]
     )
-    release = count >= cfg.ls_release
     if cfg.mode in ("off", "static"):
         new_state = state._replace(
             times=times, diffs=diffs, wrench_hist=wrench_hist, count=count,
@@ -210,26 +272,36 @@ def update(
         )
         if cfg.mode == "off":
             return new_state, torch.zeros_like(state.f_est)
+        release = count >= cfg.ls_release
         f_for_qp = torch.where(
             release[..., None], f_est_static, torch.zeros_like(f_est_static))
         return new_state, f_for_qp
 
-    blurred = gaussian_filter(diffs, cfg.sigma_fast)
-    fit, B, D = fit_sin_ls(times, blurred)
-    fit_active = count >= cfg.window
+    if cfg.mode == "faithful":
+        blurred = gaussian_filter(diffs, cfg.sigma_fast)
+        very_blurred = gaussian_filter(diffs, cfg.sigma_slow)
+        fit = fit_sin(times, blurred - very_blurred)
+        fit_active = have_fit & (count <= cfg.freeze_after)
+        est_sin, est_cos = state.est_sin, state.est_cos
+    else:
+        fit, B, D = fit_sin_ls(times, gaussian_filter(diffs, cfg.sigma_fast))
+        fit_active = have_fit
+        est_sin = torch.where(fit_active, B, state.est_sin)
+        est_cos = torch.where(fit_active, D, state.est_cos)
     est_amp = torch.where(fit_active, fit.amp, state.est_amp)
     est_freq = torch.where(fit_active, fit.freq, state.est_freq)
     est_phase = torch.where(fit_active, fit.phase, state.est_phase)
     est_stat = torch.where(fit_active, fit.offset, state.est_stat)
-    est_sin = torch.where(fit_active, B, state.est_sin)
-    est_cos = torch.where(fit_active, D, state.est_cos)
-
-    two_pi = torch.tensor(2.0 * np.pi, dtype=dtype, device=diffs.device)
-    wt = two_pi * est_freq * sim_time
-    comp = est_stat + est_sin * torch.sin(wt) + est_cos * torch.cos(wt)
+    if cfg.mode == "faithful":
+        comp = est_amp + torch.sin(two_pi * sim_time * est_freq + est_phase)
+        release = count > cfg.freeze_after
+    else:
+        wt = two_pi * est_freq * sim_time
+        comp = est_stat + est_sin * torch.sin(wt) + est_cos * torch.cos(wt)
+        release = count >= cfg.ls_release
 
     f_est = state.f_est.clone()
-    f_est[..., 3] = torch.where(fit_active, comp, state.f_est[..., 3])
+    f_est[..., 3] = torch.where(have_fit, comp, state.f_est[..., 3])
     f_est_smoothed = ema_smooth * state.f_est_smoothed + (1.0 - ema_smooth) * f_est
 
     new_state = state._replace(
@@ -249,21 +321,26 @@ def predict_horizon(
     horizon: int,
     cfg: EstimatorConfig,
 ) -> torch.Tensor:
-    """Per-step predicted wrench over the MPC horizon (..., h, 6): with the
-    "ls" fit (offset, B sin + D cos at the fitted frequency) the disturbance
-    at t + k dt is evaluated per step, released as ``update``'s f_for_qp is
-    (count >= ls_release).  For "static" and "off" the reference evaluates
-    its amp + sin form of the never-fitted state, released after
-    ``freeze_after``; this follows it."""
-    if cfg.mode not in ("ls", "static", "off"):
-        raise NotImplementedError(
-            f"estimator mode {cfg.mode!r} is not ported yet, see ROADMAP.md "
-            "Queue 1")
+    """Per-step predicted wrench over the MPC horizon (..., h, 6): the fit
+    evaluated at t + k dt, released as ``update``'s f_for_qp is.  "ls"
+    (component 3) and "ls6" (every component) release at count >=
+    ls_release; "faithful", "static" and "off" evaluate the amp + sin form
+    of their (for the last two never fitted) state, released after
+    ``freeze_after``, as the reference does."""
     dtype, device = state.diffs.dtype, state.diffs.device
     k = torch.arange(horizon, dtype=dtype, device=device) * torch.as_tensor(
         dt_step, dtype=dtype, device=device)
     t_steps = sim_time[..., None] + k                      # (..., h)
     two_pi = torch.tensor(2.0 * np.pi, dtype=dtype, device=device)
+    if cfg.mode == "ls6":
+        wt6 = two_pi * state.est6_freq[..., None, :] * t_steps[..., None]
+        w = (
+            state.est6_stat[..., None, :]
+            + state.est6_sin[..., None, :] * torch.sin(wt6)
+            + state.est6_cos[..., None, :] * torch.cos(wt6)
+        )                                                  # (..., h, 6)
+        release = state.count >= cfg.ls_release
+        return torch.where(release[..., None, None], w, torch.zeros_like(w))
     wt = two_pi * state.est_freq[..., None] * t_steps
     if cfg.mode == "ls":
         comp = (

@@ -5,7 +5,8 @@ A gait is (offsets[4], durations[4], n_segments) in MPC segments
 (OffsetDurationGait, Gait.cpp); phases and the horizon contact table are
 functions of the global control-tick counter.  The presets reproduce
 ConvexMPCLocomotion.cpp:41-52 at the runtime period (default 16).  The
-mixed-frequency gaits are not ported yet.
+mixed-frequency gaits (MixedFrequncyGait, Gait.cpp:26-41) have their own
+per-leg phase, contact and table functions (``mixed_*``).
 """
 
 from __future__ import annotations
@@ -50,6 +51,7 @@ def _preset_tables(period: int) -> dict[str, tuple[tuple[int, ...], tuple[int, .
 _FIXED_PERIODS: dict[str, int] = {"trot_long": 32}
 
 DEFAULT_PERIOD = 16
+PRESET_NAMES = tuple(_preset_tables(DEFAULT_PERIOD))
 
 
 def preset(name: str, period: int = DEFAULT_PERIOD, dtype=torch.int32,
@@ -58,6 +60,21 @@ def preset(name: str, period: int = DEFAULT_PERIOD, dtype=torch.int32,
     off, dur = _preset_tables(period)[name]
     t = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
     return GaitParams(offsets=t(off), durations=t(dur), n_segments=t(period))
+
+
+def stacked_presets(names: list[str] | None = None, period: int = DEFAULT_PERIOD,
+                    device="cuda") -> GaitParams:
+    """Presets stacked along a leading gait axis (gait-sweep batches), all
+    at ``period`` (the fixed periods of ``preset`` do not apply here, as in
+    the reference)."""
+    names = names or list(PRESET_NAMES)
+    tables = _preset_tables(period)
+    t = lambda v: torch.as_tensor(v, dtype=torch.int32, device=device)
+    return GaitParams(
+        offsets=t([tables[n][0] for n in names]),
+        durations=t([tables[n][1] for n in names]),
+        n_segments=t([period] * len(names)),
+    )
 
 
 def phase(gait: GaitParams, iteration: torch.Tensor, iters_per_mpc: int) -> torch.Tensor:
@@ -126,3 +143,64 @@ def swing_time(gait: GaitParams, dt_mpc: float) -> torch.Tensor:
 def stance_time(gait: GaitParams, dt_mpc: float) -> torch.Tensor:
     """(..., 4) stance duration in seconds (Gait.cpp:263-267)."""
     return dt_mpc * gait.durations.float()
+
+
+class MixedGaitParams(NamedTuple):
+    """MixedFrequncyGait (Gait.cpp:26-41): each leg cycles on its own period
+    (in MPC segments) with a common duty cycle."""
+
+    periods: torch.Tensor      # (..., 4) int segments per leg
+    duty_cycle: torch.Tensor   # (...,) stance fraction in (0, 1)
+    n_segments: torch.Tensor   # (...,) horizon-table length
+
+
+def mixed(periods=(10, 10, 10, 10), duty_cycle: float = 0.5, n_segments: int = 10,
+          device="cuda") -> MixedGaitParams:
+    return MixedGaitParams(
+        periods=torch.as_tensor(periods, dtype=torch.int32, device=device),
+        duty_cycle=torch.as_tensor(duty_cycle, dtype=torch.float32, device=device),
+        n_segments=torch.as_tensor(n_segments, dtype=torch.int32, device=device),
+    )
+
+
+def mixed_phase(gait: MixedGaitParams, iteration: torch.Tensor,
+                iters_per_mpc: int) -> torch.Tensor:
+    """(..., 4) per-leg phase (Gait.cpp:238-245):
+    (it mod ipm T_i) / (ipm T_i)."""
+    span = iters_per_mpc * gait.periods
+    return (iteration[..., None] % span).float() / span.float()
+
+
+def mixed_contact_state(gait: MixedGaitParams, ph: torch.Tensor) -> torch.Tensor:
+    """Stance progress in [0, 1], 0 while swinging (Gait.cpp:76-100)."""
+    d = gait.duty_cycle[..., None]
+    return torch.where(ph > d, torch.zeros_like(ph), ph / d)
+
+
+def mixed_swing_state(gait: MixedGaitParams, ph: torch.Tensor) -> torch.Tensor:
+    """Swing progress in [0, 1], 0 while in stance (Gait.cpp:137-157)."""
+    d = gait.duty_cycle[..., None]
+    p = ph - d
+    return torch.where(p < 0.0, torch.zeros_like(p), p / (1.0 - d))
+
+
+def mixed_mpc_table(gait: MixedGaitParams, iteration: torch.Tensor,
+                    iters_per_mpc: int, horizon: int) -> torch.Tensor:
+    """(..., horizon, 4) int32 contact table (Gait.cpp:190-215): leg j is in
+    stance at future segment i iff (i + itr + 1) mod T_j < T_j duty, with
+    itr the unwrapped segment counter (Gait.cpp:230)."""
+    itr = iteration // iters_per_mpc
+    i = torch.arange(horizon, dtype=torch.int32, device=itr.device)
+    prog = (i[:, None] + itr[..., None, None] + 1) % gait.periods[..., None, :]
+    thresh = gait.periods[..., None, :].float() * gait.duty_cycle[..., None, None]
+    return (prog.float() < thresh).to(torch.int32)
+
+
+def mixed_swing_time(gait: MixedGaitParams, dt_mpc: float) -> torch.Tensor:
+    """(..., 4) seconds of swing per leg (Gait.cpp:258-261)."""
+    return dt_mpc * (1.0 - gait.duty_cycle[..., None]) * gait.periods
+
+
+def mixed_stance_time(gait: MixedGaitParams, dt_mpc: float) -> torch.Tensor:
+    """(..., 4) seconds of stance per leg (Gait.cpp:269-272)."""
+    return dt_mpc * gait.duty_cycle[..., None] * gait.periods

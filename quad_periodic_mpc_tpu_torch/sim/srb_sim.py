@@ -6,8 +6,9 @@ with the exact nilpotent ZOH at the control dt and re-linearized about the
 current orientation every step, plus the reference experiment's
 disturbance F_x = d_s + d_n sin(2 pi f t + phi) (raisim_unitree_ros_driver
 defaults d_s = -10 N, d_n = 15 N, f = 0.33 Hz) injected through the Q_d
-channel as an acceleration F/m.  The wrench disturbance and terrain
-ground functions are not ported yet.
+channel as an acceleration F/m, or a per-component sinusoidal 6-wrench
+(``WrenchDisturbance``, acceleration space).  Terrain ground functions are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -39,6 +40,27 @@ class DisturbanceParams(NamedTuple):
         f = lambda v: torch.full(batch, v, dtype=dtype, device=device)
         return DisturbanceParams(f(-10.0), f(15.0), f(0.33), f(0.0))
 
+    @staticmethod
+    def zero(batch: tuple = (), dtype=torch.float32, device="cuda"):
+        f = lambda v: torch.full(batch, v, dtype=dtype, device=device)
+        return DisturbanceParams(f(0.0), f(0.0), f(0.33), f(0.0))
+
+
+class WrenchDisturbance(NamedTuple):
+    """Per-component sinusoidal 6-wrench disturbance in acceleration space,
+    w_i(t) = static_i + amp_i sin(2 pi freq_i t + phase_i): the general case
+    of the reference's x-force signal, for the ls6 estimator."""
+
+    static: torch.Tensor   # (..., 6)
+    amp: torch.Tensor      # (..., 6)
+    freq: torch.Tensor     # (..., 6)
+    phase: torch.Tensor    # (..., 6)
+
+    @staticmethod
+    def zero(batch: tuple = (), dtype=torch.float32, device="cuda"):
+        f = lambda v: torch.full(batch + (6,), v, dtype=dtype, device=device)
+        return WrenchDisturbance(f(0.0), f(0.0), f(0.33), f(0.0))
+
 
 class PlantState(NamedTuple):
     x: torch.Tensor        # (..., 13) SRB state [rpy, p, omega, v, -g]
@@ -69,9 +91,13 @@ def init_plant(
     )
 
 
-def disturbance_wrench(dist: DisturbanceParams, t: torch.Tensor, mass: float) -> torch.Tensor:
-    """(..., 6) acceleration-space wrench [tau_acc(3); lin_acc(3)]."""
+def disturbance_wrench(dist, t: torch.Tensor, mass: float) -> torch.Tensor:
+    """(..., 6) acceleration-space wrench [tau_acc(3); lin_acc(3)] of a
+    ``DisturbanceParams`` or a ``WrenchDisturbance``."""
     two_pi = torch.tensor(2.0 * math.pi, dtype=t.dtype, device=t.device)
+    if isinstance(dist, WrenchDisturbance):
+        return dist.static + dist.amp * torch.sin(
+            two_pi * dist.freq * t[..., None] + dist.phase)
     fx = dist.static + dist.amp * torch.sin(two_pi * dist.freq * t + dist.phase)
     zeros = torch.zeros_like(fx)
     return torch.stack([zeros, zeros, zeros, fx / mass, zeros, zeros], dim=-1)
@@ -82,7 +108,7 @@ def step(
     forces: torch.Tensor,
     p_foot_des: torch.Tensor,
     stance_mask: torch.Tensor,
-    dist: DisturbanceParams,
+    dist,
     cfg: MPCConfig,
     dt: float,
     ground_fn=None,

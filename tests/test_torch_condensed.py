@@ -152,15 +152,6 @@ def test_build_qp_matches_jax(h, per_step, dtype):
                                    rtol=1e-7, atol=0, err_msg=f)
 
 
-def test_build_qp_tunable_raises():
-    obs, xref, seg, *_ = _obs(1, 4, seed=0)
-    table = t_gait.mpc_table(t_gait.preset("trotting", device="cpu"), torch.as_tensor(seg), 4)
-    with pytest.raises(NotImplementedError):
-        t_problem.build_qp(t_problem.RobotObs(**{k: torch.as_tensor(v) for k, v in obs.items()}),
-                           torch.as_tensor(xref), table, tc.MPCConfig(horizon=4),
-                           tunable=object())
-
-
 def _spd_batch(seed, B, n):
     G = np.random.default_rng(seed).normal(size=(B, n, n))
     K = np.asarray(G @ np.swapaxes(G, -1, -2) + 5.0 * np.eye(n), np.float32)

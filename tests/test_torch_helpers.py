@@ -84,7 +84,7 @@ def test_import_leaves_jax_out():
 
 @pytest.mark.parametrize("name", [
     "MPCConfig", "ADMMConfig", "PDIPConfig", "EstimatorConfig",
-    "SwingConfig", "LoopConfig"])
+    "SwingConfig", "LoopConfig", "GaitConfig"])
 def test_config_defaults_equal_reference(name):
     ref = dataclasses.asdict(getattr(j_config, name)())
     port = dataclasses.asdict(getattr(t_config, name)())
@@ -104,6 +104,28 @@ def test_slice2_defaults_equal_reference(module, name):
     ref = getattr(importlib.import_module(f"quad_periodic_mpc_tpu.{module}"), name)()
     port = getattr(importlib.import_module(f"quad_periodic_mpc_tpu_torch.{module}"), name)()
     assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+
+
+def test_tunable_defaults_equal_reference():
+    """TunableParams.from_config on both packages, leaf by leaf, with
+    non-default configs too; leaves on the requested device and dtype."""
+    for kw in ({}, dict(mpc=dict(alpha=1e-4, f_max=90.0, x_drag_gain=2.0),
+                        loop=dict(swing_height=0.12), swing=dict(bonus_swing=0.1))):
+        jt = j_config.TunableParams.from_config(
+            j_config.MPCConfig(**kw.get("mpc", {})), j_config.LoopConfig(**kw.get("loop", {})),
+            j_config.EstimatorConfig(), j_config.SwingConfig(**kw.get("swing", {})))
+        tt = t_config.TunableParams.from_config(
+            t_config.MPCConfig(**kw.get("mpc", {})), t_config.LoopConfig(**kw.get("loop", {})),
+            t_config.EstimatorConfig(), t_config.SwingConfig(**kw.get("swing", {})), device="cpu")
+        assert tt._fields == jt._fields
+        for a, b in zip(tt, jt):
+            assert a.dtype == torch.float32 and a.device.type == "cpu"
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        conv = convert.tunable_params(jt, "cpu")
+        for a, b in zip(conv, tt):
+            assert torch.equal(a, b)
+    t64 = t_config.TunableParams.from_config(dtype=torch.float64, device="cpu")
+    assert all(v.dtype == torch.float64 for v in t64)
 
 
 def test_a1_constants_equal_reference():

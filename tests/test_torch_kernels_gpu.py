@@ -393,3 +393,21 @@ def test_kf_and_admm_wrappers_reject_float64(cuda):
                     backend="pallas")
     assert out.P.dtype == torch.float64 and out.P.is_cuda
     assert (FK.LAUNCHES, AK.LAUNCHES) == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sigma", [7.0, 27.0])
+def test_band_filter_float32_on_the_card(cuda, sigma):
+    """The estimator's blurs (one banded matrix product each; sigma 27 has
+    radius 81) in float32 on the card, B = 2048, window 400: within 1e-5 of
+    the largest |x| of the same filter in float64, which TF32 products
+    (~1e-3) would miss; the package keeps TF32 off."""
+    from quad_periodic_mpc_tpu_torch.ops import estimator as E
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    g = torch.Generator().manual_seed(int(sigma))
+    x = torch.randn(2048, 400, generator=g, dtype=torch.float64) + 5 * torch.sin(
+        torch.arange(400, dtype=torch.float64) * 0.05)
+    got = E.gaussian_filter(x.float().to(cuda), sigma).cpu().double()
+    want = E.gaussian_filter(x.float().double(), sigma)
+    assert float((got - want).abs().max()) < 1e-5 * float(x.abs().max())

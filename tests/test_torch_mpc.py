@@ -22,6 +22,7 @@ from quad_periodic_mpc_tpu_torch import config as tc
 from quad_periodic_mpc_tpu_torch import convert
 from quad_periodic_mpc_tpu_torch.control import loop as t_loop
 from quad_periodic_mpc_tpu_torch.control import mpc as t_mpc
+from quad_periodic_mpc_tpu_torch.models import a1 as t_a1
 from quad_periodic_mpc_tpu_torch.ops import qp_stagewise as t_qp
 from quad_periodic_mpc_tpu_torch.ops.cuda import stagewise_kernel as TK
 from quad_periodic_mpc_tpu_torch.sim import srb_sim as t_sim
@@ -157,22 +158,20 @@ def test_warm_solve_passes_kkt_gates():
     assert float(res["dual"].max()) < 1e-3
 
 
-@pytest.mark.parametrize("what", ["ls6", "tunable", "faithful"])
+@pytest.mark.parametrize("what", ["heightmap", "ground_fn", "foothold_adjust"])
 def test_unported_branches_raise(what):
-    """Branches that are not ported raise instead of falling back (the
-    condensed ADMM and the PDIP run: tests/test_torch_mpc_condensed.py)."""
+    """The terrain hooks, not ported yet, raise instead of falling back
+    (the estimator arms and the tunables run: test_torch_estimator_modes.py,
+    test_torch_tunable.py)."""
     plant, ctrl, cmd, gait, dist = _port(*_jax_setup(prefill_estimator=False))
     mt, lt, et, st = _configs()[1]
-    kw = {}
-    if what == "ls6":
-        et = tc.EstimatorConfig(mode="ls6")
-    elif what == "tunable":
-        kw["tunable"] = object()
-    else:
-        et = tc.EstimatorConfig(mode="faithful")
     with pytest.raises(NotImplementedError):
-        t_mpc.mpc_step(ctrl, t_sim.observe(plant), cmd, gait, plant.t,
-                       mt, lt, et, st, **kw)
+        if what == "foothold_adjust":
+            t_mpc.swing_update(ctrl, t_sim.observe(plant), cmd, gait, t_a1.A1, tc.SwingConfig(),
+                               mt, lt, lt.swing_height, foothold_adjust=lambda pf, s, o: pf)
+        else:
+            t_loop.rollout(1, plant, ctrl, cmd, gait, dist, mt, lt, et, st,
+                           **{what: object()})
 
 
 def test_mpc_step_on_cpu_launches_no_kernel():

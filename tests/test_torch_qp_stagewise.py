@@ -84,12 +84,6 @@ def test_predict_horizon_matches_jax(mode, count):
     close(w_t, w_j, atol=2e-5)
 
 
-def test_predict_horizon_rejects_unported_modes():
-    st = t_est.init((2,), 48, device="cpu")
-    with pytest.raises(NotImplementedError):
-        t_est.predict_horizon(st, torch.zeros(2), 0.026, 10, tc.EstimatorConfig(mode="ls6"))
-
-
 @pytest.mark.parametrize("warm", ["cold", "warm", "bad_seed"])
 def test_ns_inverse_matches_jax(warm):
     """ns_inverse on SPD 12x12 blocks (cond ~1e3), cold, from a contractive

@@ -20,6 +20,9 @@ times, on seeded inputs (``testing/kernel_cases``):
 - fused_substeps at B = 256 and B = 1 with 1 and 10 substeps: the
   intercept is the load and store, the slope one substep;
 - fused_model_eval at B = 256 and B = 1;
+- fused_contact_kinematics at B = 2048, 256 and 1, beside an empty
+  kernel's launch (``torch.cuda._sleep(0)``: one thread that reads the
+  clock and returns), the floor that no kernel's call goes under;
 - fused_kf_innovate at B = 2048, 1585, 1584 and 1 (1584 and 1585 sit on
   either side of the first design's one-wave limit, 12 blocks on each of
   132 SMs);
@@ -48,12 +51,13 @@ successive copies.  The copies' outputs are meaningless; only their times
 are read.  A source that matches none of a kernel's pattern lists gets no
 split.
 
-For each version it also prints the largest errors of all six kernels
+For each version it also prints the largest errors of all seven kernels
 against their plain versions (the WBC at 15 PDIP iterations, the plant at
-10 substeps, the model evaluation at B = 256 and 1, the KF at every batch
+10 substeps, the model evaluation at B = 256 and 1, the contact
+kinematics at every batch above, the KF at every batch
 above, the ADMM at every shape above with 30 iterations, the dump at both
 batches), and fails where one exceeds the card tests' tolerance
-(``KC.WBC_TOL``, ``KC.PLANT_TOL``, ``KC.MODEL_TOL``, ``KC.KF_TOL``,
+(``KC.WBC_TOL``, ``KC.PLANT_TOL``, ``KC.MODEL_TOL``, ``CONTACT_TOL``, ``KC.KF_TOL``,
 ``KC.admm_tol(h)``, the dump's 1e-6) or a contact flag differs.  An ADMM
 shape that misses ``KC.admm_tol(h)`` fails, unless ``KC.admm_f64_gated(B,
 h)`` says that the first design's kernel lies past it there too (h > 28,
@@ -131,6 +135,10 @@ ADMM_CASES = [(2048, 10, "f32", (0, 1, 30)), (2048, 10, "bf16", (0, 1, 30)),
 ADMM_ITERS = 30
 F64_SEEDS = 8                       # more seeds for each shape held to float64
 DUMP_BATCHES = (2048, 1)
+CONTACT_BATCHES = (2048, 256, 1)
+# the contact kinematics against its plain version: chip_smoke.TICK_TOL's
+# (f32 sums in another order; tests/test_kinematics_kernel.py's tolerances)
+CONTACT_TOL = {"Jc": 2e-5, "p_foot": 2e-5, "Jcdqd": 5e-4}
 DUMP_TOL = 1e-6                     # the card tests' (same entries in exact f32)
 REPS = 10
 COLUMNS = r"constexpr int kJF32 = \d+, kJBf16 = \d+;"   # admm.cu's register columns
@@ -397,6 +405,11 @@ def main() -> int:
             for n in (1, 10)}
         model_st[B] = KC.model_states(B, seed=4, device=dev)
         cases["fused_model_eval", B] = {"": lambda st=model_st[B]: KK.fused_model_eval(st, mc)}
+    contact_st = {B: KC.model_states(B, seed=2, device=dev) for B in CONTACT_BATCHES}
+    for B in CONTACT_BATCHES:
+        cases["fused_contact_kinematics", B] = {
+            "": lambda st=contact_st[B]: KK.fused_contact_kinematics(st, mc)}
+    cases["empty kernel", 1] = {"": lambda: torch.cuda._sleep(0)}
     for B in KF_BATCHES:
         kf_args[B] = KC.kf_case(B, seed=10, device=dev)
         cases["fused_kf_innovate", B] = {
@@ -488,6 +501,15 @@ def main() -> int:
                 f"max|d{n}|={e:.3g} (tol {KC.MODEL_TOL[n]})" for n, e in errs.items()))
             mine["fused_model_eval", B] = {"A": A, "Ainv": Ainv, "G": G, "C": C, "Jc": info.Jc,
                                            "Jcdqd": info.Jcdqd, "p_foot": info.p_foot}
+        for B in CONTACT_BATCHES:
+            got = KK.fused_contact_kinematics(contact_st[B], mc)
+            if ("contact", B) not in wanted:
+                wanted["contact", B] = fb.contact_jacobians(contact_st[B], mc)
+            errs = {n: maxdiff(getattr(got, n), getattr(wanted["contact", B], n))
+                    for n in CONTACT_TOL}
+            ok &= all(errs[n] < CONTACT_TOL[n] for n in errs)
+            print(f"[error] {tree} fused_contact_kinematics B={B}: " + ", ".join(
+                f"max|d{n}|={e:.3g} (tol {CONTACT_TOL[n]})" for n, e in errs.items()))
         for B in KF_BATCHES:
             got = FK.fused_kf_innovate(*kf_args[B], dt=KC.KF_DT)
             if ("kf", B) not in wanted:
@@ -578,8 +600,11 @@ def main() -> int:
     for tree in order:
         use(tree)
         ok &= errors(tree)
+        floor = {}
         for (name, B), fns in cases.items():
             t = {k: device_ms(fn) for k, fn in fns.items()}
+            if name in ("fused_contact_kinematics", "empty kernel"):
+                floor[name, B] = t[""]
             for k, ms in t.items():
                 print(f"[time] {tree} {name} B={B}{' ' + k if k else ''}: {ms:.4f} ms per call "
                       f"on the device on {card}")
@@ -601,6 +626,11 @@ def main() -> int:
                       f"{slope:.4f} ms on {card}")
             elif B in SPLIT_BATCHES.get(name, ()):
                 split(tree, name, B, t[""])
+        print(f"[floor] {tree} fused_contact_kinematics " + ", ".join(
+            f"B={B} {floor['fused_contact_kinematics', B]:.4f}" for B in CONTACT_BATCHES)
+            + f" ms per call, an empty kernel's launch {floor['empty kernel', 1]:.4f} ms: "
+            + ", ".join(f"{floor['fused_contact_kinematics', B] / floor['empty kernel', 1]:.2f}x"
+                        for B in CONTACT_BATCHES) + f" the floor, on {card}")
         if tree == "checkout" and admm_variants:
             variants()
             admm_variants.clear()       # once, in the first pass
