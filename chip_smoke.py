@@ -110,6 +110,35 @@ result line) when it fails:
    and 12 run side by side, each in a process of its own (spawned, and
    joined before 13), since every period is host-bound.  11-13 print their
    wall seconds, their periods' ms and the device's busy share.
+14. terrain in the loop (tests/test_terrain_loop.py:126-178's doorstep
+   experiment) on the main path: loop.rollout with each instance's 96 x 96
+   map at 0.03 m (scenario.build_map) and the true surface as the plant's
+   ground, B = 2048 (the bench trot's gait phases at vx = 0.25 from rest,
+   estimator "ls", no disturbance), 110 periods an arm, the map-aware arm
+   (foothold_update every tick, the map's body-height command) against the
+   terrain-blind one, side by side in two spawned processes; instance 0 is
+   the reference test's robot (a 6 cm riser at 0.35 m) and the others cycle
+   through the 20 (riser, edge) pairs of tests/test_sweep_terrain.py; one
+   fused_stagewise_solve_srb launch a period and no other; instance 0 and
+   the median over the instances with a riser meet
+   test_terrain_rollout_beats_flat's gates (final x > 0.55 in both arms; rms
+   of the height-above-terrain error over the last 25 periods under 0.012
+   with the map, over 0.04 without, and their ratio under 0.3); one warm
+   period of the map-aware arm passes the KKT audit with the fused build
+   dumped (one srb_build_dump launch);
+15. the elevation-mapping tick of 256 robots, each walking onto its own
+   step with a 16,384-point stereo scan a tick (a 128 x 128 subsample of a
+   480 x 640 depth image, noise-free, depth cutoff 0.2-3 m): predict ->
+   motion_update -> InputSource.process (multi-height gate) ->
+   visibility_cleanup (12 ray samples) -> move -> fuse_area -> postprocess
+   -> compute_traversability, 20 ticks, then one footstep_planner.plan and
+   extract_path; ticks 0 and 19 and the first 16 robots' plan are held stage
+   by stage to the CPU port run on the same inputs copied to the CPU
+   (MAPPING_TOL: 0 for the elementwise stages, the gathers, the scatter-min
+   and the planner; 2e-5 relative for the summing ones), and the Kalman map
+   converges to the true step (within 1e-3 on every observed cell clear of
+   the riser).  14-15 print their ms per period or tick, launches and busy
+   share.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 object per kernel with its times and bound, and
@@ -214,6 +243,45 @@ SWEEP_W5000_PRIMAL = 0.02
 # kernel is held to its plain version at TOL["U"], and the two plain
 # versions lie ~2e-4 apart (tests/test_torch_tunable.py), allowed 1e-3
 TUNE_TOL = 2 * TOL["U"] + 1e-3
+# slice 6: terrain in the loop, phase 14 (tests/test_terrain_loop.py:126-178's
+# doorstep experiment: 110 periods at vx = 0.25, the height-above-terrain rms
+# over the last 25, each instance's 96 x 96 map at 0.03 m) on the bench's
+# batch and solver, and the elevation-mapping tick, phase 15
+TERRAIN_PERIODS, TERRAIN_VX, TERRAIN_TAIL = 110, 0.25, 25
+MAP_SIZE, MAP_RES = 96, 0.03
+TERRAIN_RISERS, TERRAIN_EDGES = (0.0, 0.03, 0.06, 0.09), (0.20, 0.25, 0.30, 0.35, 0.40)
+# test_terrain_rollout_beats_flat's gates.  JAX's XLA path meets every one
+# under stagewise ADMM-30 float32 (tools/slice6_reference.py, B = 8: instance
+# 0 final x 0.6952 / 0.6990, rms 0.00481 / 0.05671, ratio 0.0848; the median
+# over risers 0.7005 / 0.7006, 0.00543 / 0.04952, 0.1848), so they stand
+TERRAIN_X_MIN, TERRAIN_RMS_MAP, TERRAIN_RMS_FLAT, TERRAIN_RATIO = 0.55, 0.012, 0.04, 0.3
+# phase 15: B robots walk MAPPING_STEP a tick from MAPPING_START before
+# their step onto it; a stereo camera (the reference's StereoSensorProcessor
+# model, a 128 x 128 subsample of a 480 x 640 image, 90 degrees wide, pitched
+# down 0.5 rad, 0.25 m ahead of the base) with a 0.2-3 m depth cutoff
+MAPPING_BATCH, MAPPING_TICKS, MAPPING_CHECK_TICKS, MAPPING_PLAN_CHECK = 256, 20, (0, 19), 16
+MAPPING_STEP, MAPPING_START, MAPPING_GOAL, MAPPING_PATH_STEPS = 0.05, 0.6, 0.6, 40
+MAPPING_PROCESS_VAR, MAPPING_POSE_VAR, MAPPING_MAHALANOBIS = 1e-6, 1e-6, 2.5
+MAPPING_RAY_SAMPLES = 12
+SCAN_SIDE, CAM_W, CAM_H, CAM_F, CAM_PITCH, CAM_T = 128, 640, 480, 320.0, 0.5, (0.25, 0.0, 0.05)
+STEREO = dict(p_1=0.1, p_2=0.002, p_3=0.5, p_4=320.0, p_5=0.001, lateral_factor=0.01,
+              depth_to_disparity_factor=100.0, v_center=240.0, cutoff_min_depth=0.2,
+              cutoff_max_depth=3.0)
+# card vs the CPU port, stage by stage on the same inputs: |card - cpu| over
+# max(|cpu|, MAPPING_SCALE m) (variances relative to themselves).  0: equal
+# (elementwise operations, gathers, the scatter-min of visibility_cleanup,
+# the planner's adds and mins).  The others sum in another order: the
+# fusion's scatter-adds are atomics on the card, fuse_area's and inpaint's
+# sums and the products of motion_update and the sensor model go through
+# other reductions; float32 sums of up to ~100 terms: 2e-5
+MAPPING_SCALE = 0.1
+MAPPING_TOL = {"predict": 0.0, "motion_update": 2e-5, "process": 2e-5, "points": 2e-5,
+               "visibility_cleanup": 0.0, "move": 0.0, "fuse_area": 2e-5, "postprocess": 2e-5,
+               "traversability": 0.0, "plan": 0.0}
+# test_fuse_convergence's gate, over the cells seen (variance < 1) more than
+# two cells from the riser, with at least this many such cells a robot (a
+# quarter of them on the step)
+MAPPING_CONVERGED, MAPPING_MIN_CELLS = 1e-3, 200
 # H100 SXM: HBM3 rate and float32 (non-tensor-core) peak, NVIDIA data sheet
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
@@ -1902,6 +1970,445 @@ def go1_rollout(device, card: str, B: int = GO1_BATCH, periods: int = GO1_PERIOD
     return launches
 
 
+def _sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def terrain_scenarios(B: int, device):
+    """(riser, edge_x) per instance: instance 0 is tests/test_terrain_loop.py's
+    robot (a 6 cm riser at 0.35 m), instances 1.. cycle through the 20 pairs of
+    tests/test_sweep_terrain.py:106-107, risers fastest."""
+    import torch
+
+    pairs = [(r, e) for e in TERRAIN_EDGES for r in TERRAIN_RISERS]
+    riser = [0.06] + [pairs[(i - 1) % len(pairs)][0] for i in range(1, B)]
+    edge = [0.35] + [pairs[(i - 1) % len(pairs)][1] for i in range(1, B)]
+    f = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
+    return f(riser), f(edge)
+
+
+def terrain_inputs(device, B: int):
+    """Phase 14's batch: the bench trot's gait phases ((7 i) mod 208) from
+    rest at TERRAIN_VX, no disturbance, each instance's single step and its
+    MAP_SIZE x MAP_SIZE map at MAP_RES (scenario.build_map).  Returns
+    (terrain, map, plant, ctrl, cmd, gait, dist)."""
+    import torch
+
+    from quad_periodic_mpc_tpu_torch.control import mpc as M
+    from quad_periodic_mpc_tpu_torch.ops import gait as G
+    from quad_periodic_mpc_tpu_torch.sim import srb_sim as S
+    from quad_periodic_mpc_tpu_torch.terrain import scenario as SC
+
+    riser, edge = terrain_scenarios(B, device)
+    terr = SC.StairsTerrain(edge_x=edge, riser=riser, tread=10.0, n_steps=1)
+    hm = SC.build_map(terr, size=MAP_SIZE, resolution=MAP_RES)
+    plant = S.init_plant((B,), body_height=0.29, device=device)
+    ctrl = M.init_state((B,), S.observe(plant), horizon=HORIZON, formulation="stagewise")
+    ctrl = ctrl._replace(
+        iteration=(torch.arange(B, dtype=torch.int32, device=device) * 7) % 208)
+    f32 = dict(dtype=torch.float32, device=device)
+    cmd = M.Command(vx=torch.full((B,), TERRAIN_VX, **f32), vy=torch.zeros(B, **f32),
+                    yaw_rate=torch.zeros(B, **f32), body_height=torch.full((B,), 0.29, **f32))
+    return (terr, hm, plant, ctrl, cmd, G.preset("trotting", device=device),
+            S.DisturbanceParams.zero((B,), device=device))
+
+
+def terrain_period(hm, mpc_cfg, loop_cfg, est_cfg, solver):
+    """The MPC step of one map-aware period, for kkt_audit: the map's
+    body-height command, setup_command, mpc_step (the plant is not stepped)."""
+    from quad_periodic_mpc_tpu_torch.control import loop as L
+    from quad_periodic_mpc_tpu_torch.control import mpc as M
+    from quad_periodic_mpc_tpu_torch.sim import srb_sim as S
+
+    def period(ctrl, plant, cmd, gait, dist, return_qp=False):
+        obs = S.observe(plant)
+        cmd_t = L.terrain_command(hm, cmd, obs)
+        ctrl = M.setup_command(ctrl, cmd_t, loop_cfg)
+        out = M.mpc_step(ctrl, obs, cmd_t, gait, plant.t, mpc_cfg, loop_cfg, est_cfg, solver,
+                         return_qp=return_qp)
+        return out[0], plant, out[1], (out[2] if return_qp else None)
+
+    return period
+
+
+def terrain_arm(job: dict) -> dict:
+    """One arm of phase 14 in a process of its own: loop.rollout of the
+    terrain batch, map-aware (job["map"]) or terrain-blind, on the true
+    surface, the stagewise launch counts set to 0 just before and read just
+    after (one fused_stagewise_solve_srb launch a period, no other); two more
+    periods under the profiler; the map-aware arm's warm KKT audit with the
+    fused build dumped.  Returns the launches and what the gates read: each
+    instance's final x and rms of the height-above-terrain error over the
+    last TERRAIN_TAIL periods."""
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    import quad_periodic_mpc_tpu_torch  # noqa: F401  (sets the f32 policy)
+    from quad_periodic_mpc_tpu_torch.config import EstimatorConfig
+    from quad_periodic_mpc_tpu_torch.control import loop as L
+    from quad_periodic_mpc_tpu_torch.ops.cuda import stagewise_kernel as SK
+    from quad_periodic_mpc_tpu_torch.terrain import scenario as SC
+
+    device = torch.device(job["device"])
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    tag, B, periods = job["tag"], job["B"], job["periods"]
+    terr, hm, plant, ctrl, cmd, gait, dist = terrain_inputs(device, B)
+    mpc_cfg, loop_cfg, solver = _slice5_configs()
+    est_cfg = EstimatorConfig(mode="ls", residual="discrete")
+
+    def run(n, p, c):
+        return L.rollout(n, p, c, cmd, gait, dist, mpc_cfg, loop_cfg, est_cfg, solver,
+                         heightmap=hm if job["map"] else None,
+                         ground_fn=lambda xy: SC.ground_z(terr, xy))
+
+    _sync(device)
+    reset_stagewise_counts()
+    t0 = time.perf_counter()
+    carry, trace = run(periods, plant, ctrl)
+    _sync(device)
+    secs = time.perf_counter() - t0
+    counts = dict(SK.LAUNCHES)
+    launches = counts["fused_stagewise_solve_srb"]
+    print(f"[{tag}] loop.rollout B={B}: {periods} periods in {secs:.1f} s "
+          f"({1e3 * secs / periods:.1f} ms/period), fused_stagewise_solve_srb launches "
+          f"{launches} ({launches / periods:g} a period) on {job['card']}")
+    if device.type == "cuda":      # the counts count CUDA launches only
+        check(launches == periods and sum(counts.values()) == launches,
+              f"{tag}: expected {periods} fused-build launches and no other, counted {counts}")
+    check(bool(torch.isfinite(trace.x).all()) and bool(torch.isfinite(trace.forces).all())
+          and bool(torch.isfinite(carry.plant.p_feet).all()), f"{tag}: non-finite rollout")
+    if device.type == "cuda":
+        def step(c, p):
+            out = run(1, p, c)[0]
+            return out.ctrl, out.plant
+
+        profile_periods(step, carry.ctrl, carry.plant, n=2)
+    dumps = 0
+    if job["map"]:
+        reset_stagewise_counts()
+        kkt_audit(tag, terrain_period(hm, mpc_cfg, loop_cfg, est_cfg, solver), carry.ctrl,
+                  carry.plant, cmd, gait, dist, est_cfg, dump=True)
+        audit = dict(SK.LAUNCHES)
+        dumps = audit["srb_build_dump"]
+        if device.type == "cuda":
+            check(audit["fused_stagewise_solve_srb"] == 1 and dumps == 1,
+                  f"{tag}: the audit launched {audit}")
+    x = trace.x
+    err = x[..., 5] - SC.ground_z(terr, x[..., 3:5]) - 0.29
+    return {"launches": launches, "dumps": dumps, "x_final": x[:, -1, 3].cpu(),
+            "rms": err[:, -TERRAIN_TAIL:].pow(2).mean(dim=1).sqrt().cpu()}
+
+
+def terrain_experiment(device, card: str, B: int = BATCH,
+                       periods: int = TERRAIN_PERIODS) -> dict:
+    """Phase 14, terrain in the loop (tests/test_terrain_loop.py:126-178's
+    doorstep experiment at the bench's batch and solver): the map-aware and
+    the terrain-blind arm side by side, a spawned process each.  Instance 0
+    and the median over the instances with a riser meet
+    test_terrain_rollout_beats_flat's gates.  Returns the launches of the
+    kernels of the path, by name."""
+    import multiprocessing
+
+    import numpy as np
+
+    t0 = time.perf_counter()
+    jobs = [{"device": str(device), "card": card, "tag": f"terrain {arm}", "B": B,
+             "periods": periods, "map": arm == "map"} for arm in ("map", "blind")]
+    with concurrent.futures.ProcessPoolExecutor(
+            len(jobs), mp_context=multiprocessing.get_context("spawn")) as pool:
+        m, f = pool.map(terrain_arm, jobs)
+    print(f"[terrain] phase 14, two arms side by side, took {time.perf_counter() - t0:.1f} s")
+    riser = terrain_scenarios(B, "cpu")[0].numpy()
+    xm, xf, rm, rf = (a.numpy() for a in (m["x_final"], f["x_final"], m["rms"], f["rms"]))
+    stepped = riser > 0
+    for what, pick in (("instance 0", lambda a: float(a[0])),
+                       ("median over riser > 0", lambda a: float(np.median(a[stepped])))):
+        fig = [pick(a) for a in (xm, xf, rm, rf, rm / rf)]
+        print(f"[terrain] {what}: final x map {fig[0]:.4f}, blind {fig[1]:.4f} (gate > "
+              f"{TERRAIN_X_MIN}); rms over the last {TERRAIN_TAIL} periods map {fig[2]:.5f} "
+              f"(gate < {TERRAIN_RMS_MAP}), blind {fig[3]:.5f} (gate > {TERRAIN_RMS_FLAT}), "
+              f"ratio {fig[4]:.4f} (gate < {TERRAIN_RATIO})")
+        check(fig[0] > TERRAIN_X_MIN and fig[1] > TERRAIN_X_MIN and fig[2] < TERRAIN_RMS_MAP
+              and fig[3] > TERRAIN_RMS_FLAT and fig[4] < TERRAIN_RATIO,
+              f"terrain: {what} misses a gate: {fig}")
+    flat = ~stepped
+    print(f"[terrain] riser-0 instances ({int(flat.sum())}): largest |rms map - rms blind| "
+          f"{np.abs(rm - rf)[flat].max():.3g} m, |x map - x blind| {np.abs(xm - xf)[flat].max():.3g} m")
+    return {"fused_stagewise_solve_srb": m["launches"] + f["launches"],
+            "srb_build_dump": m["dumps"]}
+
+
+def camera(device):
+    """The depth camera on each robot: R_base_sensor (optical axis forward,
+    pitched down by CAM_PITCH; x right, y down), t_base_sensor, and the
+    SCAN_SIDE x SCAN_SIDE subsample of its CAM_H x CAM_W image: pixel
+    (row, col) coordinates and rays in the sensor frame (z = 1)."""
+    import math
+
+    import torch
+
+    f32 = dict(dtype=torch.float32, device=device)
+    c, s = math.cos(CAM_PITCH), math.sin(CAM_PITCH)
+    pitch = torch.tensor([[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]], **f32)
+    axes = torch.tensor([[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0], [0.0, -1.0, 0.0]], **f32)
+    k = torch.arange(SCAN_SIDE, **f32) + 0.5
+    v, u = torch.meshgrid(k * (CAM_H / SCAN_SIDE), k * (CAM_W / SCAN_SIDE), indexing="ij")
+    u, v = u.reshape(-1), v.reshape(-1)
+    rays = torch.stack([(u - CAM_W / 2) / CAM_F, (v - CAM_H / 2) / CAM_F, torch.ones_like(u)], -1)
+    return pitch @ axes, torch.tensor(CAM_T, **f32), torch.stack([v, u], -1), rays
+
+
+def depth_scan(terr, p_base, cam):
+    """Each robot's noise-free scan of its single step (flat z = 0 before
+    edge_x, z = riser from it on), robot yaw 0: the first hit of every ray
+    with the floor, the riser's face or its top; a ray that hits nothing gets
+    depth 100 m, outside the stereo cutoff.  Returns sensor-frame points
+    (B, n, 3)."""
+    import torch
+
+    R_bs, t_bs, _, rays = cam
+    d = rays @ R_bs.T                                      # (n, 3), world = base frame
+    o = p_base + t_bs                                      # (B, 3)
+    dx, dz = d[:, 0][None], d[:, 2][None]
+    ox, oz = o[:, 0:1], o[:, 2:3]
+    e, r = terr.edge_x[:, None], terr.riser[:, None]
+    inf = torch.full_like(ox * dx, float("inf"))
+    down = dz < 0
+    t_floor = torch.where(down, -oz / torch.where(down, dz, -1.0), inf)
+    t_floor = torch.where(ox + t_floor * dx < e, t_floor, inf)
+    t_top = torch.where(down, (r - oz) / torch.where(down, dz, -1.0), inf)
+    t_top = torch.where((ox + t_top * dx >= e) & (t_top > 0), t_top, inf)
+    fwd = dx > 0
+    t_face = torch.where(fwd, (e - ox) / torch.where(fwd, dx, 1.0), inf)
+    z_face = oz + t_face * dz
+    t_face = torch.where((t_face > 0) & (z_face >= 0) & (z_face <= r), t_face, inf)
+    t = torch.minimum(torch.minimum(t_floor, t_top), t_face)
+    depth = torch.where(torch.isfinite(t), t, torch.full_like(t, 100.0))
+    return depth[..., None] * rays
+
+
+def _to_cpu(a):
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return a.cpu()
+    if isinstance(a, dict):
+        return {k: _to_cpu(v) for k, v in a.items()}
+    if isinstance(a, tuple) and hasattr(a, "_fields"):
+        return type(a)(*(_to_cpu(v) for v in a))
+    if isinstance(a, (tuple, list)):
+        return type(a)(_to_cpu(v) for v in a)
+    return a
+
+
+def _named_leaves(a, name=""):
+    """(field name, tensor) of every tensor in a (nested) result."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return [(name, a)]
+    if isinstance(a, dict):
+        return [x for k, v in a.items() for x in _named_leaves(v, k)]
+    if isinstance(a, tuple) and hasattr(a, "_fields"):
+        return [x for k, v in zip(a._fields, a) for x in _named_leaves(v, k)]
+    if isinstance(a, (tuple, list)):
+        return [x for i, v in enumerate(a) for x in _named_leaves(v, f"{name}{i}")]
+    return []
+
+
+def stage_error(out, ref) -> float:
+    """The largest error of a stage's card result against the CPU port's:
+    |card - cpu| / max(|cpu|, MAPPING_SCALE) over every float field (a
+    variance field relative to itself; equal values, infinities too, and NaN
+    against NaN count 0), inf where an integer or boolean field differs."""
+    import torch
+
+    worst = 0.0
+    for (name, a), (_, b) in zip(_named_leaves(out), _named_leaves(ref)):
+        a = a.cpu()
+        if not a.is_floating_point():
+            worst = max(worst, 0.0 if torch.equal(a, b) else float("inf"))
+            continue
+        floor = 1e-30 if name == "variance" else MAPPING_SCALE
+        gap = (a - b).abs() / torch.clamp(b.abs(), min=floor)
+        gap = torch.where((a == b) | (a.isnan() & b.isnan()), torch.zeros_like(gap), gap)
+        worst = max(worst, float(gap.nan_to_num(float("inf")).max()))
+    return worst
+
+
+def mapping_tick(hm, scan, source, cam, errors=None):
+    """One elevation-mapping tick of every robot: predict -> motion_update ->
+    InputSource.process (stereo, depth cutoff, multi-height gate) ->
+    visibility_cleanup -> move (to the robot) -> fuse_area -> postprocess ->
+    compute_traversability.  Returns (the Kalman map carried to the next
+    tick, the traversability map the planner reads).  errors: a dict into
+    which each stage writes its stage_error against the CPU port run on the
+    same inputs copied to the CPU (None: no comparison)."""
+    import torch
+
+    from quad_periodic_mpc_tpu_torch.terrain import heightmap as H
+    from quad_periodic_mpc_tpu_torch.terrain import postprocess as PP
+    from quad_periodic_mpc_tpu_torch.terrain import sensor as SE
+
+    def stage(name, fn, *args):
+        out = fn(*args)
+        if errors is not None:
+            errors[name] = max(errors.get(name, 0.0), stage_error(out, fn(*_to_cpu(args))))
+        return out
+
+    pts, p_base = scan
+    R_bs, t_bs, pix, _ = cam
+    B = p_base.shape[0]
+
+    def frame(p):
+        """The poses on p's device: R_map_base (yaw 0), R_base_sensor,
+        t_base_sensor, t_map_base, and the pose covariance."""
+        eye = torch.eye(3, dtype=p.dtype, device=p.device).expand(B, 3, 3)
+        return eye, R_bs.to(p.device), t_bs.to(p.device), p_base.to(p.device), MAPPING_POSE_VAR * eye
+
+    def fuse(m, p):
+        R_mb, R_bs_, t_bs_, t_mb, cov = frame(p)
+        return source.process(m, p, R_mb, R_bs_, t_bs_, t_mb, cov, pixel_ij=pix.to(p.device),
+                              mahalanobis_threshold=MAPPING_MAHALANOBIS)
+
+    def scan_points(p):
+        R_mb, R_bs_, t_bs_, t_mb, cov = frame(p)
+        p_map, var = SE.process_points(p, source.processor, R_mb, R_bs_, t_bs_, t_mb, cov,
+                                       pixel_ij=pix.to(p.device))
+        var = torch.where(source.processor.depth_mask(p), torch.clamp(var, min=1e-9),
+                          torch.full_like(var, float("inf")))
+        return {"points": p_map, "variance": var}
+
+    eye, *_, cov = frame(pts)
+    hm = stage("predict", H.predict, hm, MAPPING_PROCESS_VAR)
+    hm = stage("motion_update", H.motion_update, hm, cov, eye)
+    hm = stage("process", fuse, hm, pts)
+    cloud = stage("points", scan_points, pts)
+    hm = stage("visibility_cleanup", lambda m, c, s: H.visibility_cleanup(
+        m, c["points"], c["variance"], s, MAPPING_RAY_SAMPLES), hm, cloud, p_base + t_bs)
+    hm = stage("move", H.move, hm, p_base[:, :2])
+    mean = stage("fuse_area", H.fuse_area, hm)[0]
+    post = stage("postprocess", PP.postprocess, hm._replace(elevation=mean))
+    trav = stage("traversability", H.compute_traversability, post)
+    return hm, trav
+
+
+def elevation_mapping(device, card: str, B: int = MAPPING_BATCH,
+                      ticks: int = MAPPING_TICKS, check_ticks=MAPPING_CHECK_TICKS,
+                      plan_check: int = MAPPING_PLAN_CHECK) -> None:
+    """Phase 15, the elevation-mapping tick of B robots, each walking at
+    MAPPING_STEP a tick onto its own single step (risers 3 / 6 / 9 cm, edges
+    0.20-0.40 m) with a SCAN_SIDE^2-point stereo scan a tick (noise-free,
+    depth_scan) and a MAP_SIZE^2 map at MAP_RES that moves with it; then one
+    footstep plan and path on the last traversability map.  The ticks in
+    check_ticks are held stage by stage to the CPU port on the same inputs
+    (MAPPING_TOL; 0 = equal), and so are the first plan_check robots' plan
+    and path; every observed cell of the Kalman map away from the riser
+    converges to the true step (tests/test_terrain.py::test_fuse_convergence's
+    1e-3)."""
+    import torch
+
+    from quad_periodic_mpc_tpu_torch.terrain import footstep_planner as FP
+    from quad_periodic_mpc_tpu_torch.terrain import heightmap as H
+    from quad_periodic_mpc_tpu_torch.terrain import scenario as SC
+    from quad_periodic_mpc_tpu_torch.terrain.input_sources import InputSourceManager
+
+    t_phase = time.perf_counter()
+    mgr = InputSourceManager()
+    check(mgr.configure({"front_stereo": {
+        "type": "pointcloud", "topic": "/front/points", "queue_size": 1,
+        "publish_on_update": True, "sensor_processor": {"type": "stereo", **STEREO}}}),
+        f"mapping: input sources rejected: {mgr.errors}")
+    source = mgr.sources[0]
+    pairs = [(r, e) for e in TERRAIN_EDGES for r in TERRAIN_RISERS if r > 0]
+    f32 = dict(dtype=torch.float32, device=device)
+    terr = SC.StairsTerrain(
+        edge_x=torch.tensor([pairs[i % len(pairs)][1] for i in range(B)], **f32),
+        riser=torch.tensor([pairs[i % len(pairs)][0] for i in range(B)], **f32),
+        tread=10.0, n_steps=1)
+    cam = camera(device)
+
+    def robot(k):
+        x = terr.edge_x - MAPPING_START + MAPPING_STEP * k
+        xy = torch.stack([x, torch.zeros_like(x)], -1)
+        return torch.cat([xy, (SC.ground_z(terr, xy) + 0.29)[:, None]], -1)
+
+    hm = H.create(size=MAP_SIZE, resolution=MAP_RES, batch=(B,), device=device)
+    hm = hm._replace(center=robot(0)[:, :2].clone())
+    times, errors = [], {}
+    for k in range(ticks):
+        p_base = robot(k)
+        scan = (depth_scan(terr, p_base, cam), p_base)
+        _sync(device)
+        t0 = time.perf_counter()
+        hm_next, trav = mapping_tick(hm, scan, source, cam)
+        _sync(device)
+        times.append(1e3 * (time.perf_counter() - t0))
+        if k in check_ticks:
+            mapping_tick(hm, scan, source, cam, errors)
+        hm = hm_next
+    n_pts = scan[0].shape[1]
+    valid = float(source.processor.depth_mask(scan[0]).float().mean())
+    print(f"[mapping] B={B}, {n_pts} points a robot a tick ({100 * valid:.1f}% inside the depth "
+          f"cutoff at the last tick): {ticks} ticks, median {statistics.median(times):.2f} "
+          f"ms/tick (min {min(times):.2f}, max {max(times):.2f}) on {card}")
+    if device.type == "cuda":
+        profile_periods(lambda m, s: (mapping_tick(m, s, source, cam)[0], s), hm, scan, n=2,
+                        unit="tick")
+
+    # one plan and path on the last traversability map, from the robot's cell
+    # to the cell MAPPING_GOAL ahead
+    xy = robot(ticks - 1)[:, :2]
+    start = H.world_to_index(trav, xy)
+    goal = H.world_to_index(trav, xy + torch.tensor([MAPPING_GOAL, 0.0], **f32))
+    _sync(device)
+    t0 = time.perf_counter()
+    plan = FP.plan(trav, goal)
+    path = FP.extract_path(plan, start, MAPPING_PATH_STEPS)
+    _sync(device)
+    plan_ms = 1e3 * (time.perf_counter() - t0)
+    sub = lambda a: _to_cpu(a)[:plan_check]
+    cpu_map = H.HeightMap(*(sub(a) for a in trav[:4]), trav.resolution)
+    ref_plan = FP.plan(cpu_map, sub(goal))
+    ref_path = FP.extract_path(ref_plan, sub(start), MAPPING_PATH_STEPS)
+    errors["plan"] = stage_error((plan.value[:plan_check], path[:plan_check]),
+                                 (ref_plan.value, ref_path))
+    reached = float((path[:, -1] == goal).all(-1).float().mean())
+    print(f"[mapping] footstep plan ({MAP_SIZE + MAP_SIZE} sweeps) and a {MAPPING_PATH_STEPS}-step "
+          f"path: {plan_ms:.1f} ms; {100 * reached:.1f}% of the paths end at the goal")
+    print(f"[mapping] card vs CPU port on the same inputs (ticks {list(check_ticks)}, the plan "
+          f"of robots 0-{plan_check - 1}), largest error by stage: "
+          + ", ".join(f"{k} {v:.3g} (tol {MAPPING_TOL[k]:g})" for k, v in errors.items()))
+    for k, v in errors.items():
+        check(v <= MAPPING_TOL[k], f"mapping: stage {k} is {v} from the CPU port")
+
+    # the Kalman map converges to the true step, away from the riser's cells
+    c = torch.arange(MAP_SIZE, device=device)
+    x_hi = hm.center[:, 0:1] + MAP_RES * ((MAP_SIZE // 2) - c)            # cell x in (x_hi - res, x_hi]
+    y_hi = hm.center[:, 1:2] + MAP_RES * (c - (MAP_SIZE // 2))
+    x_mid = (x_hi - MAP_RES / 2)[:, None, :].expand(B, MAP_SIZE, MAP_SIZE)
+    y_mid = (y_hi - MAP_RES / 2)[:, :, None].expand(B, MAP_SIZE, MAP_SIZE)
+    truth = SC.ground_z(terr, torch.stack([x_mid, y_mid], -1))
+    clear = (x_mid - terr.edge_x[:, None, None]).abs() > 2 * MAP_RES
+    seen = (hm.variance < 1.0) & clear
+    top = seen & (x_mid > terr.edge_x[:, None, None])
+    err = torch.where(seen, (hm.elevation - truth).abs(), torch.zeros_like(truth))
+    per_robot = (seen.sum((1, 2)).min().item(), top.sum((1, 2)).min().item())
+    print(f"[mapping] Kalman map after {ticks} ticks: largest |elevation - true| over the "
+          f"observed cells clear of the riser {float(err.max()):.3g} m (gate "
+          f"{MAPPING_CONVERGED}); fewest such cells a robot {per_robot[0]}, on the step "
+          f"{per_robot[1]}")
+    check(float(err.max()) < MAPPING_CONVERGED, "mapping: the map did not converge to the step")
+    check(per_robot[0] >= MAPPING_MIN_CELLS and per_robot[1] >= MAPPING_MIN_CELLS // 4,
+          f"mapping: too few observed cells {per_robot}")
+    check(bool(torch.isfinite(trav.traversability).all()), "mapping: non-finite traversability")
+    print(f"[mapping] phase 15 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def slice5(device, card: str) -> dict:
     """Phases 11-13.  Returns the launches of their counted runs, by path
     and kernel."""
@@ -1968,10 +2475,12 @@ def main() -> int:
         slice4_records = slice4(device, card)
         by_name = {r["name"]: r for r in (record, *solve_records.values(),
                                           *slice4_records.values())}
-        for path, counts in slice5(device, card).items():
+        for path, counts in [*slice5(device, card).items(),
+                             ("terrain", terrain_experiment(device, card))]:
             for name, n in counts.items():
                 check(n > 0, f"{name} was launched no time on the {path} path")
                 by_name[name].setdefault("launches_by_path", {})[path] = n
+        elevation_mapping(device, card)
         if "jax" in sys.modules or "quad_periodic_mpc_tpu" in sys.modules:
             raise SmokeFailure("JAX or the JAX package was imported")
     except SmokeFailure as e:

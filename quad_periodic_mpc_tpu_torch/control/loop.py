@@ -6,8 +6,9 @@ MPC periods and an inner loop over the iterations_between_mpc control
 ticks (FSM_State_Locomotion.cpp:13).  The reference's ``lax.scan`` is a
 Python loop here.  Batched: a leading batch axis rolls out many scenarios
 in lockstep.  Live-tunable parameters go to every MPC step and swing
-update.  Heightmaps and ground functions are not ported yet (ROADMAP.md
-Queue 1).
+update.  The terrain tier (the CMPCLocomotion_Cv / VisionMPC closed loop)
+plugs in through ``heightmap`` (map-aware footholds and a map body-height
+command) and ``ground_fn`` (the plant's true surface).
 """
 
 from __future__ import annotations
@@ -24,11 +25,13 @@ from quad_periodic_mpc_tpu_torch.config import (
     SwingConfig,
     TunableParams,
 )
+from quad_periodic_mpc_tpu_torch.control import cmpc_variant
 from quad_periodic_mpc_tpu_torch.control import mpc as mpc_ctrl
 from quad_periodic_mpc_tpu_torch.models.a1 import A1, RobotModel
 from quad_periodic_mpc_tpu_torch.ops import gait as gait_ops
 from quad_periodic_mpc_tpu_torch.ops.rotations import quat_to_rpy
 from quad_periodic_mpc_tpu_torch.sim import srb_sim
+from quad_periodic_mpc_tpu_torch.terrain import heightmap as hmap
 
 
 class RolloutCarry(NamedTuple):
@@ -93,6 +96,35 @@ def _tick_balance_correction(gains, obs, ctrl, cmd, stance, f_mpc, mpc_cfg):
     return torch.stack([fx, fy, fz], dim=-1)
 
 
+class TerrainLoopConfig(NamedTuple):
+    """Terrain-in-the-loop settings (the CMPCLocomotion_Cv / VisionMPC
+    tier): map-aware foothold selection + map body-height command.
+
+    max_step_height cites MAX_STEP_HEIGHT = 0.17 (CMPC_Locomotion_cv.h:24);
+    search radius 0.10 m cites _idxMapChecking (CMPC_Locomotion_cv.cpp:921).
+    body_height_from_map raises the commanded body height by the mean map
+    elevation under the feet (the map branch of _body_height_heuristics,
+    CMPC_Locomotion_cv.cpp:885-891)."""
+
+    search_radius_m: float = 0.10
+    traversability_min: float = 0.8
+    max_step_height: float = 0.17
+    body_height_from_map: bool = True
+
+
+def terrain_command(heightmap, cmd, obs, terrain_cfg: TerrainLoopConfig = TerrainLoopConfig()):
+    """The command with the map's body-height offset: the mean map elevation
+    under the four feet added to cmd.body_height (unchanged without a map or
+    with body_height_from_map off)."""
+    if heightmap is None or not terrain_cfg.body_height_from_map:
+        return cmd
+    # per-foot lookup: the map center against the foot axis
+    hm_feet = heightmap._replace(center=heightmap.center[..., None, :])
+    idx = hmap.world_to_index(hm_feet, obs.p_feet[..., 0:2])
+    z_ground = hmap.sample(heightmap.elevation, idx).mean(dim=-1)
+    return cmd._replace(body_height=cmd.body_height + z_ground)
+
+
 class RolloutTrace(NamedTuple):
     """Per-MPC-step telemetry (LogData analog)."""
 
@@ -117,36 +149,53 @@ def rollout(
     model: RobotModel = A1,
     swing_cfg: SwingConfig = SwingConfig(),
     tick_balance: TickBalanceGains | None = None,
-    heightmap=None,
+    heightmap: hmap.HeightMap | None = None,
     ground_fn=None,
+    terrain_cfg: TerrainLoopConfig = TerrainLoopConfig(),
     tunable: TunableParams | None = None,
 ) -> tuple[RolloutCarry, RolloutTrace]:
     """Run n_mpc_steps MPC periods (each = iterations_between_mpc ticks),
     on the device of the given states.  dist: a ``DisturbanceParams`` or a
     ``WrenchDisturbance``; tunable: ``TunableParams`` for every MPC step and
-    swing update (retune by writing into its tensors between calls)."""
-    if heightmap is not None or ground_fn is not None:
-        raise NotImplementedError(
-            "terrain is not ported yet, see ROADMAP.md Queue 1")
+    swing update (retune by writing into its tensors between calls).
+
+    Terrain tier: ``heightmap`` switches on map-aware foothold selection
+    (``cmpc_variant.foothold_update`` in every swing update) and, per
+    terrain_cfg, the map's body-height command; ``ground_fn`` (xy -> z)
+    gives the plant the true surface, so terrain-blind swing targets strike
+    risers early.  A (B, H, W) heightmap runs B terrain scenarios in
+    lockstep."""
+    if heightmap is not None:
+        def foothold_adjust(pf_target, state, obs):
+            p0 = torch.where(state.first_swing[..., None], obs.p_feet, state.swing_p0)
+            return cmpc_variant.foothold_update(
+                heightmap, pf_target, p0,
+                search_radius_m=terrain_cfg.search_radius_m,
+                traversability_min=terrain_cfg.traversability_min,
+                max_step_height=terrain_cfg.max_step_height)
+    else:
+        foothold_adjust = None
 
     def control_tick(carry: RolloutCarry, do_mpc: bool) -> RolloutCarry:
         plant, ctrl = carry
         obs = srb_sim.observe(plant)
-        ctrl = mpc_ctrl.setup_command(ctrl, cmd, loop_cfg)
+        cmd_t = terrain_command(heightmap, cmd, obs, terrain_cfg)
+        ctrl = mpc_ctrl.setup_command(ctrl, cmd_t, loop_cfg)
         if do_mpc:
             ctrl, _ = mpc_ctrl.mpc_step(
-                ctrl, obs, cmd, gait, plant.t, mpc_cfg, loop_cfg, est_cfg, solver,
+                ctrl, obs, cmd_t, gait, plant.t, mpc_cfg, loop_cfg, est_cfg, solver,
                 tunable=tunable)
         ctrl, out = mpc_ctrl.swing_update(
-            ctrl, obs, cmd, gait, model, swing_cfg, mpc_cfg, loop_cfg,
-            loop_cfg.swing_height, tunable=tunable)
+            ctrl, obs, cmd_t, gait, model, swing_cfg, mpc_cfg, loop_cfg,
+            loop_cfg.swing_height, tunable=tunable, foothold_adjust=foothold_adjust)
         stance = (out.swing_state <= 0).to(plant.x.dtype)
         forces = out.fr_des
         if tick_balance is not None:
             forces = _tick_balance_correction(
-                tick_balance, obs, ctrl, cmd, stance, forces, mpc_cfg)
+                tick_balance, obs, ctrl, cmd_t, stance, forces, mpc_cfg)
         plant = srb_sim.step(
-            plant, forces, out.p_foot_des, stance, dist, mpc_cfg, loop_cfg.dt)
+            plant, forces, out.p_foot_des, stance, dist, mpc_cfg, loop_cfg.dt,
+            ground_fn=ground_fn)
         return RolloutCarry(plant, ctrl)
 
     carry = RolloutCarry(plant, ctrl)

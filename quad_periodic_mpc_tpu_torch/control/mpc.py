@@ -26,8 +26,7 @@
 
 A leading batch axis runs many MPC instances in one call.  Both take
 live-tunable parameters (``config.TunableParams``, tensors read only on the
-device); the terrain foothold hook of ``swing_update`` is not ported yet
-(ROADMAP.md Queue 1).
+device); ``swing_update`` takes the terrain tier's foothold hook.
 """
 
 from __future__ import annotations
@@ -414,10 +413,13 @@ def swing_update(
 ) -> tuple[ControllerState, ControlOutput]:
     """Per-control-tick swing/stance bookkeeping + foot targets
     (ConvexMPCLocomotion.cpp:277-460).  Increments the iteration counter.
-    ``tunable`` overrides swing_height, bonus_swing and p_rel_max."""
-    if foothold_adjust is not None:
-        raise NotImplementedError(
-            "terrain foothold hooks are not ported yet, see ROADMAP.md Queue 1")
+    ``tunable`` overrides swing_height, bonus_swing and p_rel_max.
+
+    foothold_adjust: optional hook ``(pf_target, state, obs) -> pf`` run on
+    the Raibert targets before they become swing goals; the terrain tier
+    plugs the elevation-map foothold update in here (the call site of
+    _updateFoothold in the _cv driver's swing-leg loop,
+    CMPC_Locomotion_cv.cpp:1022)."""
     if tunable is not None:
         swing_height = tunable.swing_height
     dtype, device = obs.p.dtype, obs.p.device
@@ -454,6 +456,8 @@ def swing_update(
         p_rel_max=swing_cfg.p_rel_max if tunable is None else tunable.p_rel_max,
         dt_mpc=loop.dt_mpc,
     )
+    if foothold_adjust is not None:
+        pf_target = foothold_adjust(pf_target, state, obs)
 
     in_swing = swing_st > 0
     start_swing = in_swing & state.first_swing      # lock p0 (:376-381)

@@ -7,10 +7,12 @@ takes one of the reference's state types (``ControllerState``,
 ``GaitParams``, ``FBState``, ``ArtState``, ``ContactInfo``, ``WBCInput``,
 ``ModelConstants``, ``StagewiseProblem``, ``KFState``, the estimation
 container's ``EstimatorState``, ``QPData``, ``ADMMState``,
-``TunableParams``, ``WrenchDisturbance``, ``MixedGaitParams``) with array
+``TunableParams``, ``WrenchDisturbance``, ``MixedGaitParams``,
+``HeightMap``, ``StairsTerrain``) with array
 leaves of any kind that ``numpy.asarray`` accepts, and builds the port's NamedTuple of tensors on the given device,
-keeping each leaf's dtype (the tuple fields of ``ModelConstants`` stay
-Python values).  Nothing here imports JAX.
+keeping each leaf's dtype (the tuple fields of ``ModelConstants``, a map's
+``resolution`` and a staircase's ``tread`` and ``n_steps`` stay Python
+values).  Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ from quad_periodic_mpc_tpu_torch.estimation import container, kf
 from quad_periodic_mpc_tpu_torch.models import floating_base
 from quad_periodic_mpc_tpu_torch.ops import estimator, gait, qp_admm, qp_stagewise
 from quad_periodic_mpc_tpu_torch.sim import articulated_sim, srb_sim
+from quad_periodic_mpc_tpu_torch.terrain import heightmap as hmap
+from quad_periodic_mpc_tpu_torch.terrain import scenario
 
 
 def tensor(a, device="cuda") -> torch.Tensor:
@@ -126,6 +130,22 @@ def model_constants(src, device="cuda") -> floating_base.ModelConstants:
             else tensor(getattr(src, f), device))
         for f in floating_base.ModelConstants._fields
     })
+
+
+def heightmap(src, device="cuda") -> hmap.HeightMap:
+    """The reference's HeightMap; ``resolution`` stays a Python float."""
+    return hmap.HeightMap(
+        elevation=tensor(src.elevation, device), variance=tensor(src.variance, device),
+        traversability=tensor(src.traversability, device), center=tensor(src.center, device),
+        resolution=float(src.resolution))
+
+
+def stairs_terrain(src, device="cuda") -> scenario.StairsTerrain:
+    """The reference's StairsTerrain; ``tread`` and ``n_steps`` stay Python
+    numbers."""
+    return scenario.StairsTerrain(
+        edge_x=tensor(src.edge_x, device), riser=tensor(src.riser, device),
+        tread=float(src.tread), n_steps=int(src.n_steps))
 
 
 def to_numpy(value):

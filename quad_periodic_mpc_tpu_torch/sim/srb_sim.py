@@ -7,8 +7,8 @@ current orientation every step, plus the reference experiment's
 disturbance F_x = d_s + d_n sin(2 pi f t + phi) (raisim_unitree_ros_driver
 defaults d_s = -10 N, d_n = 15 N, f = 0.33 Hz) injected through the Q_d
 channel as an acceleration F/m, or a per-component sinusoidal 6-wrench
-(``WrenchDisturbance``, acceleration space).  Terrain ground functions are
-not ported yet.
+(``WrenchDisturbance``, acceleration space).  A terrain ground function
+keeps swing feet on or above the true surface.
 """
 
 from __future__ import annotations
@@ -114,10 +114,10 @@ def step(
     ground_fn=None,
 ) -> PlantState:
     """One plant step of length dt.  forces: (..., 4, 3) world-frame ground
-    reactions (only stance feet push); swing feet follow p_foot_des."""
-    if ground_fn is not None:
-        raise NotImplementedError(
-            "terrain ground functions are not ported yet, see ROADMAP.md Queue 1")
+    reactions (only stance feet push); swing feet follow p_foot_des.
+    ground_fn: optional terrain surface ``xy (..., 2) -> z (...,)``; a foot
+    commanded below it is clamped onto it (early touchdown against a riser
+    face, the RaiSim stairs scene's case for a terrain-blind controller)."""
     rpy = plant.x[..., 0:3]
     p = plant.x[..., 3:6]
     R = rpy_to_rotmat(rpy)
@@ -130,6 +130,10 @@ def step(
     mv = lambda M, v: (M @ v[..., None])[..., 0]
     x_new = mv(Adt, plant.x) + mv(Bdt, u) + mv(Qdt, w)
     feet_new = torch.where(stance_mask[..., None] > 0.5, plant.p_feet, p_foot_des)
+    if ground_fn is not None:
+        gz = ground_fn(feet_new[..., 0:2])
+        feet_new = torch.cat(
+            [feet_new[..., 0:2], torch.maximum(feet_new[..., 2], gz)[..., None]], dim=-1)
     return PlantState(x=x_new, p_feet=feet_new, t=plant.t + dt)
 
 

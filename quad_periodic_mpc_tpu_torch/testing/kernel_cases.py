@@ -48,26 +48,28 @@ PLANT_TOL = {"pos": 1e-5, "quat": 1e-6, "v_body": 5e-4, "q": 1e-5, "qd": 2e-3,
              "p_foot": 1e-5, "anchor": 1e-5}
 
 
-def _t(a, device):
-    return torch.as_tensor(np.asarray(a, np.float32), device=device)
+def _t(a, device, dtype=torch.float32):
+    return torch.as_tensor(np.asarray(a, np.float32), device=device).to(dtype)
 
 
-def _trot_obs(rng, B: int, h: int, device):
-    """Random trot observations: (obs, x_ref, gait table, f_est, x_drag)."""
+def _trot_obs(rng, B: int, h: int, device, dtype=torch.float32):
+    """Random trot observations: (obs, x_ref, gait table, f_est, x_drag),
+    float32 values held in ``dtype``."""
+    t = lambda a: _t(a, device, dtype)
     hips = np.array([[0.18, -0.13, -0.27], [0.18, 0.13, -0.27],
                      [-0.18, -0.13, -0.27], [-0.18, 0.13, -0.27]])
-    quat = rpy_to_quat(_t(rng.uniform(-0.15, 0.15, (B, 3)), device))
+    quat = rpy_to_quat(t(rng.uniform(-0.15, 0.15, (B, 3))))
     obs = problem.RobotObs(
-        p=_t(np.tile([0.0, 0.0, 0.27], (B, 1)), device),
-        v=_t(rng.uniform(-0.3, 0.3, (B, 3)), device), quat=quat,
-        omega=_t(rng.uniform(-0.2, 0.2, (B, 3)), device),
-        r_feet=_t(hips + rng.uniform(-0.03, 0.03, (B, 4, 3)), device))
+        p=t(np.tile([0.0, 0.0, 0.27], (B, 1))),
+        v=t(rng.uniform(-0.3, 0.3, (B, 3))), quat=quat,
+        omega=t(rng.uniform(-0.2, 0.2, (B, 3))),
+        r_feet=t(hips + rng.uniform(-0.03, 0.03, (B, 4, 3))))
     xref = np.zeros((B, h, 13), np.float32)
     xref[..., 5] = 0.27
     seg = torch.as_tensor(rng.integers(0, 16, B), dtype=torch.int32, device=device)
     table = gait.mpc_table(gait.preset("trotting", device=device), seg, h)
-    f_est, x_drag = _t(rng.uniform(-3, 3, (B, 6)), device), _t(rng.uniform(-0.5, 0.5, B), device)
-    return obs, _t(xref, device), table, f_est, x_drag
+    f_est, x_drag = t(rng.uniform(-3, 3, (B, 6))), t(rng.uniform(-0.5, 0.5, B))
+    return obs, t(xref), table, f_est, x_drag
 
 
 def _trot_problem(rng, B: int, h: int, device, per_step_c: bool = False):
@@ -380,9 +382,14 @@ def admm_case(B: int, h: int, seed: int = 0, device="cuda", warm: bool = False,
     y0) for the condensed QP of random trot observations: K^{-1} the exact
     (Cholesky) inverse of the uniform-rho KKT matrix, the upper bounds as
     ``build_qp`` gives them (5e10 on the friction rows).  warm: a start near
-    a previous answer instead of zeros.  with_qp: also return the QPData."""
+    a previous answer instead of zeros.  with_qp: also return the QPData.
+    The QP and K^{-1} are built in float64 and rounded to float32 once, so a
+    case is the same whatever order the host's BLAS sums in (its thread
+    count) and on either device: at h = 81 (cond(K) ~6e4) a float32 build
+    moved the checks' reference distances by tens of percent with the
+    thread count."""
     rng = np.random.default_rng(seed)
-    obs, xref, table, f_est, x_drag = _trot_obs(rng, B, h, device)
+    obs, xref, table, f_est, x_drag = _trot_obs(rng, B, h, device, torch.float64)
     qp, _, _ = problem.build_qp(obs, xref, table, MPCConfig(horizon=h), f_est=f_est,
                                 x_drag=x_drag)
     cfg = ADMMConfig()
@@ -391,11 +398,14 @@ def admm_case(B: int, h: int, seed: int = 0, device="cuda", warm: bool = False,
     rho = torch.full_like(qp.l, cfg.rho)
     n, m = 12 * h, 20 * h
     if warm:
-        x0 = _t(rng.uniform(-5, 5, (B, n)), device)
+        x0 = _t(rng.uniform(-5, 5, (B, n)), device, torch.float64)
         x0[:, 2::3] += 30.0
         z0 = torch.clamp(constraints.apply(qp.F, x0), qp.l, qp.u)
         y0 = _t(rng.uniform(-1e-3, 1e-3, (B, m)), device)
     else:
         x0, z0, y0 = (torch.zeros(B, w, device=device) for w in (n, m, m))
-    args = [a.contiguous() for a in (K_inv, qp.q, qp.l, qp.u, rho, qp.F, x0, z0, y0)]
-    return (args, qp) if with_qp else args
+    args = [a.float().contiguous() for a in (K_inv, qp.q, qp.l, qp.u, rho, qp.F, x0, z0, y0)]
+    if with_qp:
+        return args, type(qp)(*(a.float() if torch.is_tensor(a) and a.is_floating_point() else a
+                                for a in qp))
+    return args

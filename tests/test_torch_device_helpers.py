@@ -33,6 +33,9 @@ import numpy as np
 import pytest
 import torch
 
+# one intra-op thread: pytest -n workers share the cores, a thread per core in each oversubscribes
+torch.set_num_threads(1)
+
 from test_torch_plant_division import _cases
 
 

@@ -14,6 +14,9 @@ import numpy as np
 import pytest
 import torch
 
+# one intra-op thread: pytest -n workers share the cores, a thread per core in each oversubscribes
+torch.set_num_threads(1)
+
 import jax.numpy as jnp
 
 from quad_periodic_mpc_tpu import config as j_config
@@ -72,14 +75,19 @@ def test_import_leaves_jax_out():
         " or m.startswith('quad_periodic_mpc_tpu.')]\n"
         "print(len([m for m in sys.modules if m.startswith(p.__name__)]))\n"
         "assert not bad, bad\n"
+        "terrain = ['heightmap', 'scenario', 'sensor', 'input_sources', 'postprocess',"
+        " 'footstep_planner']\n"
+        "missing = [m for m in terrain if p.__name__ + '.terrain.' + m not in sys.modules]\n"
+        "assert not missing and p.__name__ + '.control.cmpc_variant' in sys.modules, missing\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
         timeout=300)
     assert out.returncode == 0, out.stderr
     # every module was imported, slice 2's (articulated model, WBC, plant,
-    # full stack, the three kernel wrappers) included
-    assert int(out.stdout.strip()) >= 40
+    # full stack, the three kernel wrappers) and slice 6's (the terrain tier,
+    # cmpc_variant) included
+    assert int(out.stdout.strip()) >= 48
 
 
 @pytest.mark.parametrize("name", [

@@ -11,6 +11,9 @@ import numpy as np
 import pytest
 import torch
 
+# one intra-op thread: pytest -n workers share the cores, a thread per core in each oversubscribes
+torch.set_num_threads(1)
+
 import jax.numpy as jnp
 
 from quad_periodic_mpc_tpu import config as jc
@@ -160,18 +163,39 @@ def test_warm_solve_passes_kkt_gates():
 
 @pytest.mark.parametrize("what", ["heightmap", "ground_fn", "foothold_adjust"])
 def test_unported_branches_raise(what):
-    """The terrain hooks, not ported yet, raise instead of falling back
-    (the estimator arms and the tunables run: test_torch_estimator_modes.py,
-    test_torch_tunable.py)."""
+    """The terrain hooks, which raised NotImplementedError until the terrain
+    tier was ported, are taken now: each changes the result it feeds (the
+    map's body-height command, the ground's clamp of the swing feet, the
+    foothold hook's targets).  tests/test_torch_terrain_loop.py holds them
+    to JAX."""
+    from quad_periodic_mpc_tpu_torch.terrain import heightmap as t_hm
+
     plant, ctrl, cmd, gait, dist = _port(*_jax_setup(prefill_estimator=False))
     mt, lt, et, st = _configs()[1]
-    with pytest.raises(NotImplementedError):
-        if what == "foothold_adjust":
-            t_mpc.swing_update(ctrl, t_sim.observe(plant), cmd, gait, t_a1.A1, tc.SwingConfig(),
-                               mt, lt, lt.swing_height, foothold_adjust=lambda pf, s, o: pf)
-        else:
-            t_loop.rollout(1, plant, ctrl, cmd, gait, dist, mt, lt, et, st,
-                           **{what: object()})
+    if what == "foothold_adjust":
+        run = lambda hook: t_mpc.swing_update(
+            ctrl, t_sim.observe(plant), cmd, gait, t_a1.A1, tc.SwingConfig(), mt, lt,
+            lt.swing_height, foothold_adjust=hook)[0].swing_pf
+        shifted = run(lambda pf, s, o: pf + 0.05)
+        assert torch.allclose(shifted, run(None) + 0.05 * (shifted != run(None)))
+        assert not torch.equal(shifted, run(None))
+        return
+    if what == "heightmap":
+        hm = t_hm.create(size=32, resolution=0.03, batch=(B,), device="cpu")
+        hm = hm._replace(elevation=torch.full_like(hm.elevation, 0.1),
+                         variance=torch.full_like(hm.variance, 1e-4))
+        kw = {"heightmap": hm}
+    else:
+        kw = {"ground_fn": lambda xy: torch.full_like(xy[..., 0], 0.5)}
+    base, _ = t_loop.rollout(1, plant, ctrl, cmd, gait, dist, mt, lt, et, st)
+    hooked, _ = t_loop.rollout(1, plant, ctrl, cmd, gait, dist, mt, lt, et, st, **kw)
+    if what == "ground_fn":
+        # every foot lifted onto the 0.5 m ground, none below it
+        z = hooked.plant.p_feet[..., 2]
+        assert torch.all(z >= 0.5) and bool((z == 0.5).any())
+        assert bool((base.plant.p_feet[..., 2] < 0.5).all())
+    else:
+        assert not torch.equal(hooked.plant.x, base.plant.x)
 
 
 def test_mpc_step_on_cpu_launches_no_kernel():

@@ -20,6 +20,10 @@ from fractions import Fraction
 
 import numpy as np
 import pytest
+import torch
+
+# one intra-op thread: pytest -n workers share the cores, a thread per core in each oversubscribes
+torch.set_num_threads(1)
 
 
 def _fma(x: float, y: float, z: float) -> float:

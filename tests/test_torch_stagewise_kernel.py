@@ -12,6 +12,9 @@ import numpy as np
 import pytest
 import torch
 
+# one intra-op thread: pytest -n workers share the cores, a thread per core in each oversubscribes
+torch.set_num_threads(1)
+
 import jax.numpy as jnp
 
 from quad_periodic_mpc_tpu.config import MPCConfig

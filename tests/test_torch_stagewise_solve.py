@@ -15,6 +15,10 @@ and what surrounds it are in tests/test_torch_qp_stagewise.py.
 
 import numpy as np
 import pytest
+import torch
+
+# one intra-op thread: pytest -n workers share the cores, a thread per core in each oversubscribes
+torch.set_num_threads(1)
 
 import jax.numpy as jnp
 from _torch_stagewise_cases import F32, close, jax_problem, kernel_args, port, to_torch
