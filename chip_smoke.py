@@ -16,7 +16,7 @@ result line) when it fails:
    at every (B, h, ADMM iterations) at which the driven paths launch it,
    each timed, and at ragged shapes (B = 1, 133, 1000; h = 48); the torque
    tick's model evaluation, contact kinematics, WBC and plant substeps at
-   B = 256 (the full stack's batch), 1 and 37, from seeded numpy inputs,
+   B = 256 (the full stack's batch), 1, 37, 16 and 2, from seeded numpy inputs,
    the model evaluation, WBC and plant kernels timed at B = 1 as well (the
    single robot);
 3. drive the slice-1 main path: the walking trot of bench.py (vx = 0.3,
@@ -64,7 +64,8 @@ result line) when it fails:
    the "xla" backend's dense chain timed on the same inputs as the nearest
    library figure; fused_admm_iterations at B = 2048, h = 10, 30
    iterations in float32 and with bfloat16 storage, B = 37 at h = 16, B = 1,
-   h = 20 / 28 (resident) and one horizon past each resident size (23 / 31),
+   B = 128 / 16 / 2 at h = 10 (the dry run's tiers 1 and 3 and their
+   chunks), h = 20 / 28 (resident) and one horizon past each resident size (23 / 31),
    from zero and non-zero starts; past KC.admm_tol's calibration (h > 28,
    KC.admm_f64_gated) the kernel is held to the float64 plain version
    instead, no farther from it than KC.ADMM_F64_FACTOR times the float32
@@ -139,6 +140,36 @@ result line) when it fails:
    converges to the true step (within 1e-3 on every observed cell clear of
    the riser).  14-15 print their ms per period or tick, launches and busy
    share.
+16. the sweeps (quad_periodic_mpc_tpu_torch/parallel): (a) the multi-device
+   dry run (parallel/dryrun.dryrun_multichip, the counterpart of
+   __graft_entry__.dryrun_multichip) on a mesh of eight entries that are all
+   this card, so that the batch split, copy and gather run on it: tier 1
+   (128 instances, condensed ADMM-30 "xla", terrain, 16 periods), tier 1b's
+   three estimator arms (8 instances, 48 periods), tier 2 (16 instances, h =
+   32 through the fused-build kernel) and tier 3 (16 instances, the full
+   stack), each split against its unsplit oracle with the reference's
+   tolerances, side by side in spawned processes; the oracles' figures held
+   to JAX's (DRYRUN_REF) and the best instance and the argmin arm under the
+   tie rule; tier 1 again with the ADMM in fused_admm_iterations and tier 3
+   with every torque-tick kernel, each held to its "xla" twin; (b)
+   BASELINE.json config 3, the gait sweep: four gaits x 256 phases = 1,024
+   instances under the reference disturbance, stagewise ADMM-30 at h = 10 in
+   the fused-build kernel, 40 periods, one launch a period and no other,
+   every metric finite, p5/p50/p95 of vx_rms per gait, then the same split
+   over four entries of the card and held to the first (atol 5e-4, rtol
+   1e-3, the tie rule); (c) config 4, the 10,000 terrain scenarios of
+   tests/test_sweep_terrain.py (a 32 x 32 map each): the reference test's 2
+   periods at h = 4 with condensed ADMM-20 and its assertions, then 20
+   periods of the production setting (h = 10, stagewise ADMM-30 in the
+   fused-build kernel, map-aware footholds), every metric finite, one launch
+   a period; each of (b) and (c) then builds its batch once more, runs a
+   warm period and times 10 periods of the rollout without the set-up,
+   profiling two more; (d) parallel/dist_check as one torch.distributed
+   rank (NCCL, world size 1; its two all_gathers go through the group)
+   against one process without a group: equal JSON on every key.  16
+   prints its wall seconds, ms per period, busy share, launches and peak
+   device memory, and the sweeps' figures as one "[sweep figures]" line
+   after every phase has passed.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 object per kernel with its times and bound, and
@@ -160,11 +191,18 @@ BATCH, HORIZON, ADMM_ITERS, VX = 2048, 10, 30, 0.3
 WARM_PERIODS, TIMED_PERIODS, ROLLOUT_PERIODS = 3, 10, 3
 # the fused-build kernel vs its plain version at every (B, h, ADMM
 # iterations) of the paths that launch it, each timed: the main path's
-# first, then the h = 16 / 32 / 64 lines' and the full stack's; then
-# untimed ragged batches (B = 133 is one block more than the card's SMs)
+# first, then the h = 16 / 32 / 64 lines', the full stack's and the sweeps'
+# (phase 16: configs 3 and 4, the dry run's tier 2 oracle and chunks); then untimed ragged
+# batches (B = 133 is one block more than the card's SMs)
 SRB_SHAPES = ((BATCH, HORIZON, ADMM_ITERS, "main path"), (1024, 16, 40, "line h=16"),
               (512, 32, 50, "line h=32"), (256, 64, 50, "line h=64"),
-              (256, HORIZON, ADMM_ITERS, "full stack"))
+              (256, HORIZON, ADMM_ITERS, "full stack"),
+              (1024, HORIZON, ADMM_ITERS, "config 3 sweep"),
+              (10000, HORIZON, ADMM_ITERS, "config 4 sweep"),
+              (16, 32, ADMM_ITERS, "dry run tier 2"),
+              (2, 32, ADMM_ITERS, "dry run tier 2 chunk"))     # 16 over 8 entries
+# the shapes phase 16 launches the kernel at (their launches are checked there)
+SWEEP_SHAPES = ("config 3 sweep", "config 4 sweep", "dry run tier 2", "dry run tier 2 chunk")
 KERNEL_CASES = ((1000, HORIZON), (256, 48), (133, HORIZON), (1, HORIZON))
 # U and z are forces (~100 N): FMA contraction and summation order differ
 # between the kernel and the plain version's batched products, amplified
@@ -198,7 +236,8 @@ LONG_LINES = (
 # torque tick: bench.py's full-stack batch, the kernel-check batches, and
 # the reference's trot-walks test (45 periods, vx = 0.15)
 FS_BATCH, FS_VX, FS_PERIODS, FS_WARM, FS_TIMED = 256, 0.15, 45, 3, 10
-TICK_CASES = (FS_BATCH, 1, 37)
+# (and the dry run's tier 3: 16 instances, 2 a chunk)
+TICK_CASES = (FS_BATCH, 1, 37, 16, 2)
 B1_CHAINS, B1_PERIODS = 10, 2
 # kernel vs plain version, the tolerances of the reference's kernel tests
 # (tests/test_kinematics_kernel.py): f32 sums in another order.  The model
@@ -222,7 +261,10 @@ ADMM_CASES = ((BATCH, HORIZON, ADMM_ITERS, False, False), (BATCH, HORIZON, ADMM_
               (37, 16, 40, True, False), (37, 16, 40, False, True),
               (1, HORIZON, ADMM_ITERS, True, False), (5, 20, ADMM_ITERS, True, False),
               (5, 28, ADMM_ITERS, True, True), (5, 23, ADMM_ITERS, True, False),
-              (5, 31, ADMM_ITERS, True, True))
+              (5, 31, ADMM_ITERS, True, True),
+              # the dry run's tier 1 (128 instances, 16 a chunk) and tier 3 (16, 2 a chunk)
+              (128, HORIZON, ADMM_ITERS, True, False), (16, HORIZON, ADMM_ITERS, True, False),
+              (2, HORIZON, ADMM_ITERS, True, False))
 # slice 5: the paper's adaptive-vs-baseline experiment at the bench's batch
 # and solver (the reference's gates, tests/test_closed_loop.py:69-92: vx rms
 # over periods 500 on), ls6 under the lateral wrench (its gate,
@@ -282,6 +324,29 @@ MAPPING_TOL = {"predict": 0.0, "motion_update": 2e-5, "process": 2e-5, "points":
 # two cells from the riser, with at least this many such cells a robot (a
 # quarter of them on the step)
 MAPPING_CONVERGED, MAPPING_MIN_CELLS = 1e-3, 200
+# slice 7: the sweeps, phase 16 (parallel/).  The dry run on a mesh of
+# DRYRUN_ENTRIES copies of the one card (the reference's eight devices), its
+# oracles held to JAX's: the unsplit oracles of each tier at eight devices
+# (python tools/slice7_reference.py: JAX on the CPU, float32; the
+# reference's MULTICHIP_r05.json prints the same to four digits).  Tier 1's
+# two smallest errors are the tie rule's inputs
+DRYRUN_ENTRIES = 8
+DRYRUN_REF = {"1": {"mean": 0.27855247, "best": 111, "min": 0.02348637, "next": 0.02824243},
+              "1b": {"ls": 0.08487609, "static": 0.11950116, "off": 0.09947275},
+              "2": {"mean": 0.15457078}, "3": {"zmean": 0.27343780}}
+# BASELINE.json config 3: SweepSpec()'s four gaits x 256 phase offsets = 1,024
+# instances, 40 periods, then split over CONFIG3_SPLIT entries of the card;
+# config 4: tests/test_sweep_terrain.py's 10,000 terrain scenarios, the
+# reference test's (periods, h, ADMM iterations), then 20 periods of the
+# production setting
+CONFIG3_PHASES, CONFIG3_PERIODS, CONFIG3_SPLIT = 256, 40, 4
+CONFIG4 = dict(gait_names=("trotting", "bounding", "pacing", "galloping"), phase_offsets=5,
+               dist_static=(-10.0, -5.0, 0.0, 5.0, 10.0), dist_amp=(0.0, 5.0, 10.0, 15.0, 20.0),
+               terrain_risers=(0.0, 0.03, 0.06, 0.09),
+               terrain_edge_x=(0.20, 0.25, 0.30, 0.35, 0.40), map_size=32, map_resolution=0.05)
+CONFIG4_REFERENCE, CONFIG4_PERIODS = (2, 4, 20), 20
+# each sweep's periods timed after its set-up and a warm period
+SWEEP_TIMED_PERIODS = 10
 # H100 SXM: HBM3 rate and float32 (non-tensor-core) peak, NVIDIA data sheet
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
@@ -994,10 +1059,12 @@ def kkt_audit(tag: str, period, ctrl, plant, cmd, gait, dist, est_cfg, dump: boo
     return ctrl, plant, qp
 
 
-def profile_periods(step, ctrl, plant, n: int = 3, unit: str = "period") -> None:
+def profile_periods(step, ctrl, plant, n: int = 3, unit: str = "period") -> dict | None:
     """Where a main-path period's time goes: device time by kernel name
     over n periods (torch.profiler), and the device's busy share of the
-    wall time.  Runs after the counted window."""
+    wall time.  Runs after the counted window.  Returns the device ms, wall
+    ms and launches a period (None when the profiler recorded no device
+    time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1015,12 +1082,13 @@ def profile_periods(step, ctrl, plant, n: int = 3, unit: str = "period") -> None
     busy = sum(r[0] for r in rows)
     if not rows:
         print("[profile] the profiler recorded no device time: not measured")
-        return
+        return None
+    launches = sum(r[1] for r in rows)
     print(f"[profile] per {unit}: device busy {busy:.2f} ms of {wall_ms / n:.2f} ms "
-          f"wall ({100 * busy * n / wall_ms:.1f}% busy), "
-          f"{sum(r[1] for r in rows)} kernel launches")
+          f"wall ({100 * busy * n / wall_ms:.1f}% busy), {launches} kernel launches")
     for ms, count, key in sorted(rows, reverse=True)[:8]:
         print(f"[profile]   {ms:8.3f} ms  x{count:<4d} {key[:90]}")
+    return {"device_ms": busy, "wall_ms": wall_ms / n, "launches": launches}
 
 
 def main_path(device, card: str) -> dict:
@@ -1213,10 +1281,7 @@ def full_stack_path(device, card: str) -> dict:
                 SK.LAUNCHES["fused_stagewise_solve_srb"],
                 KK.LAUNCHES["fused_contact_kinematics"])
 
-    for k in KK.LAUNCHES:
-        KK.LAUNCHES[k] = 0
-    WK.LAUNCHES = PK.LAUNCHES = 0
-    reset_stagewise_counts()
+    reset_all_counts()
     mc, gait, kw, plant, ctrl, cmd = full_stack_setup(device, FS_BATCH)
 
     def periods(plant, ctrl, n):
@@ -2409,6 +2474,381 @@ def elevation_mapping(device, card: str, B: int = MAPPING_BATCH,
     print(f"[mapping] phase 15 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# slice 7: the sweeps (phase 16)
+# ---------------------------------------------------------------------------
+
+def reset_all_counts() -> None:
+    """Every kernel wrapper's launch count set to 0."""
+    from quad_periodic_mpc_tpu_torch.ops.cuda import admm_kernel as AK
+    from quad_periodic_mpc_tpu_torch.ops.cuda import kf_kernel as FK
+    from quad_periodic_mpc_tpu_torch.ops.cuda import kinematics_kernel as KK
+    from quad_periodic_mpc_tpu_torch.ops.cuda import plant_kernel as PK
+    from quad_periodic_mpc_tpu_torch.ops.cuda import wbc_kernel as WK
+
+    reset_stagewise_counts()
+    for k in KK.LAUNCHES:
+        KK.LAUNCHES[k] = 0
+    WK.LAUNCHES = PK.LAUNCHES = FK.LAUNCHES = AK.LAUNCHES = 0
+
+
+def dryrun_expected(tier: str, backend: str, entries: int) -> dict:
+    """The launches a dry-run tier must count, by kernel (every other kernel
+    0): a period of each of the split run's entries and of the oracle."""
+    runs = entries + 1
+    if tier == "2":
+        return {"fused_stagewise_solve_srb": 8 * runs}
+    if backend != "pallas":
+        return {}
+    if tier == "1":
+        return {"fused_admm_iterations": 16 * runs}
+    # tier 3: two full-stack periods of 13 ticks, and the one start-up
+    # observation of the whole batch
+    return {"fused_model_eval": 26 * runs, "fused_wbc": 26 * runs, "fused_substeps": 26 * runs,
+            "fused_admm_iterations": 2 * runs, "fused_contact_kinematics": 1}
+
+
+def _dryrun_job(job: dict) -> dict:
+    """One tier (or one estimator arm of tier 1b) of the dry run in a process
+    of its own, on an entries-long mesh of the one device; the launch counts
+    set to 0 just before and read just after.  Returns the tier's figures,
+    the counts, the seconds and the peak device memory."""
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    import quad_periodic_mpc_tpu_torch  # noqa: F401  (sets the f32 policy)
+    from quad_periodic_mpc_tpu_torch.parallel import dryrun
+
+    device = torch.device(job["device"])
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    _sync(device)
+    reset_all_counts()
+    t0 = time.perf_counter()
+    out = dryrun.dryrun_multichip(job["entries"], devices=[device] * job["entries"],
+                                  tiers=(job["tier"],), arms=job["arms"],
+                                  backend=job["backend"])[job["tier"]]
+    _sync(device)
+    return {"out": out, "launches": all_launch_counts(), "secs": time.perf_counter() - t0,
+            "peak": torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0}
+
+
+def _close(a, b, atol: float, rtol: float) -> bool:
+    import torch
+
+    return bool(torch.isclose(torch.as_tensor(a, dtype=torch.float64),
+                              torch.as_tensor(b, dtype=torch.float64),
+                              atol=atol, rtol=rtol).all())
+
+
+def dryrun_on_card(device, card: str, entries: int = DRYRUN_ENTRIES, ref=None) -> dict:
+    """Phase 16a: parallel/dryrun.dryrun_multichip on a mesh of `entries`
+    copies of the one card, its tiers (and tier 1b's three arms) side by side
+    in spawned processes, each tier split against its oracle inside
+    (atol 5e-4, rtol 1e-3; tier 3 atol 1e-4).  The oracles' figures are held
+    to JAX's (`ref`, at eight entries; None skips that), the best instance
+    and the argmin arm under the tie rule.  Tier 1 again with the ADMM in
+    fused_admm_iterations and tier 3 with every torque-tick kernel are held
+    to their "xla" twins.  Returns the launches by kernel."""
+    import multiprocessing
+
+    from quad_periodic_mpc_tpu_torch.parallel import dryrun
+
+    jobs = {("1", "xla"): ("1", "xla", None), ("1", "pallas"): ("1", "pallas", None),
+            ("2", "pallas"): ("2", "pallas", None),
+            **{("1b", arm): ("1b", "xla", (arm,)) for arm in dryrun.ARMS},
+            ("3", "xla"): ("3", "xla", None), ("3", "pallas"): ("3", "pallas", None)}
+    t0 = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(
+            len(jobs), mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = {key: pool.submit(_dryrun_job, {
+            "device": str(device), "entries": entries, "tier": t, "backend": b,
+            "arms": arms or dryrun.ARMS}) for key, (t, b, arms) in jobs.items()}
+        res = {key: f.result() for key, f in futures.items()}
+    print(f"[dry run] phase 16a: {len(jobs)} tiers and arms side by side on {entries} entries "
+          f"of one card took {time.perf_counter() - t0:.1f} s")
+    total: dict = {}
+    for (tier, backend), r in res.items():
+        want = dryrun_expected(tier, backend, entries)
+        got = {k: v for k, v in r["launches"].items() if v}
+        print(f"[dry run] tier {tier} {backend}: {r['secs']:.1f} s, launches {got}, peak "
+              f"memory {r['peak'] / 2**20:.1f} MiB on {card}")
+        if device.type == "cuda":   # the counts count CUDA launches only
+            check(got == want, f"dry run tier {tier} {backend}: launches {got}, expected {want}")
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+
+    t1, t2, t3 = res["1", "xla"]["out"], res["2", "pallas"]["out"], res["3", "xla"]["out"]
+    arms = {arm: res["1b", arm]["out"]["arms"][arm] for arm in dryrun.ARMS}
+    means = [arms[a]["oracle_mean"] for a in dryrun.ARMS]
+    pick = min(range(len(means)), key=means.__getitem__)
+    split_pick = min(range(len(means)), key=lambda i: arms[dryrun.ARMS[i]]["mean"])
+    check(split_pick == pick or abs(means[split_pick] - means[pick])
+          <= dryrun.ATOL + dryrun.RTOL * means[pick],
+          f"dry run tier 1b: argmin arm split {dryrun.ARMS[split_pick]} oracle "
+          f"{dryrun.ARMS[pick]}")
+    print(f"[dry run] oracles: tier 1 mean vx_rms {t1['oracle_mean']:.8f}, best "
+          f"{t1['oracle_best']} (split {t1['best']}); tier 1b " + ", ".join(
+              f"{a} {m:.8f}" for a, m in zip(dryrun.ARMS, means))
+          + f", argmin {dryrun.ARMS[pick]!r}; tier 2 {t2['oracle_mean']:.8f}; tier 3 mean z "
+          f"{t3['oracle_zmean']:.8f}; split gaps {t1['max_gap']:.3g} / {t2['max_gap']:.3g} / "
+          f"{t3['max_gap']:.3g}")
+    if ref is not None:
+        tol = dict(atol=dryrun.ATOL, rtol=dryrun.RTOL)
+        figures = [("tier 1 mean", t1["oracle_mean"], ref["1"]["mean"]),
+                   ("tier 2 mean", t2["oracle_mean"], ref["2"]["mean"]),
+                   ("tier 3 mean z", t3["oracle_zmean"], ref["3"]["zmean"])]
+        figures += [(f"tier 1b {a}", m, ref["1b"][a]) for a, m in zip(dryrun.ARMS, means)]
+        for what, got, want in figures:
+            check(_close(got, want, **tol), f"dry run {what}: {got} against JAX's {want}")
+        # the tie rule against JAX's two smallest tier-1 errors
+        r1, best = ref["1"], t1["oracle_best"]
+        near_tie = r1["next"] - r1["min"] < dryrun.ATOL + dryrun.RTOL * r1["min"]
+        check(best == r1["best"] or (near_tie and _close(
+            t1["oracle_vx_rms"][best], r1["min"], **tol)),
+            f"dry run tier 1: best instance {best} against JAX's {r1['best']}")
+        check(dryrun.ARMS[pick] == min(ref["1b"], key=ref["1b"].get),
+              f"dry run tier 1b: argmin arm {dryrun.ARMS[pick]!r}")
+        print(f"[dry run] the oracles equal JAX's figures within atol {dryrun.ATOL}, rtol "
+              f"{dryrun.RTOL}: tier 1 best instance {best} (JAX {r1['best']}), argmin arm "
+              f"{dryrun.ARMS[pick]!r}")
+    # the kernels against their "xla" twins, split and oracle
+    p1, p3 = res["1", "pallas"]["out"], res["3", "pallas"]["out"]
+    gaps = {}
+    for key in ("vx_rms", "oracle_vx_rms", "height_rms", "oracle_height_rms"):
+        gaps[f"tier 1 {key}"] = float((p1[key] - t1[key]).abs().max())
+        check(_close(p1[key], t1[key], dryrun.ATOL, dryrun.RTOL),
+              f"dry run tier 1: the ADMM kernel's {key} against the xla loop's")
+    for key in ("pos", "oracle_pos"):
+        gaps[f"tier 3 {key}"] = float((p3[key] - t3[key]).abs().max())
+        check(_close(p3[key], t3[key], dryrun.FS_ATOL, dryrun.RTOL),
+              f"dry run tier 3: the kernels' {key} against the xla path's")
+    print("[dry run] kernels against the xla twins: " + ", ".join(
+        f"{k} {v:.3g}" for k, v in gaps.items()))
+    return total
+
+
+def timed_sweep(tag: str, device, card: str, spec, periods: int, mesh=None, **kw):
+    """run_sweep with the launch counts set to 0 just before and read just
+    after, its wall time, its peak device memory and every metric finite.
+    Returns (result, launches by kernel, {run_s, periods, peak_mib})."""
+    import torch
+
+    from quad_periodic_mpc_tpu_torch.parallel import sweep as SW
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    _sync(device)
+    reset_all_counts()
+    t0 = time.perf_counter()
+    res = SW.run_sweep(spec, n_mpc_steps=periods, mesh=mesh, device=device, **kw)
+    _sync(device)
+    secs = time.perf_counter() - t0
+    launches = {k: v for k, v in all_launch_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated(device) / 2**20 if device.type == "cuda" else 0.0
+    entries = 1 if mesh is None else mesh.size
+    print(f"[{tag}] run_sweep B={res.batch} on {entries} entr{'y' if entries == 1 else 'ies'}: "
+          f"{periods} periods in {secs:.2f} s ({1e3 * secs / periods:.1f} ms/period with the "
+          f"set-up), launches {launches}, peak memory {peak:.1f} MiB; mean vx_rms "
+          f"{float(res.mean_vx_rms):.6f}, best instance {int(res.best_instance)} on {card}")
+    check(res.batch == spec.size and res.vx_rms.shape == (spec.size,), f"{tag}: batch")
+    check(bool(torch.isfinite(res.vx_rms).all()) and bool(torch.isfinite(res.height_rms).all()),
+          f"{tag}: non-finite metrics at instances "
+          f"{torch.nonzero(~torch.isfinite(res.vx_rms)).flatten().tolist()[:10]}")
+    check(0 <= int(res.best_instance) < res.batch, f"{tag}: best instance out of range")
+    return res, launches, {"run_s": secs, "periods": periods, "peak_mib": peak}
+
+
+def sweep_periods(tag: str, spec, device, card: str, solver) -> dict:
+    """The sweep's periods without its set-up, on one entry: the chunk built
+    once (sweep.build_chunks, timed: scenarios, plant, controller, maps),
+    one warm period, SWEEP_TIMED_PERIODS periods in one rollout timed, then
+    two one-period rollouts under the profiler.  Outside the counted runs.
+    Returns the figures of PERF.md's "where the time goes"."""
+    import torch
+
+    from quad_periodic_mpc_tpu_torch.config import LoopConfig
+    from quad_periodic_mpc_tpu_torch.parallel import mesh as ML
+    from quad_periodic_mpc_tpu_torch.parallel import sweep as SW
+
+    cfg = (SW.DEFAULT_MPC, LoopConfig(), SW.DEFAULT_EST, solver)
+    _sync(device)
+    t0 = time.perf_counter()
+    (chunk,) = SW.build_chunks(spec, ML.make_mesh(devices=[device]), SW.DEFAULT_MPC,
+                               SW.DEFAULT_EST, solver, torch.float32)
+    _sync(device)
+    setup_s = time.perf_counter() - t0
+
+    def step(ctrl, plant):
+        carry, _ = SW.rollout_chunk(1, chunk._replace(plant=plant, ctrl=ctrl), *cfg)
+        return carry.ctrl, carry.plant
+
+    ctrl, plant = step(chunk.ctrl, chunk.plant)
+    _sync(device)
+    t0 = time.perf_counter()
+    SW.rollout_chunk(SWEEP_TIMED_PERIODS, chunk._replace(plant=plant, ctrl=ctrl), *cfg)
+    _sync(device)
+    ms = 1e3 * (time.perf_counter() - t0) / SWEEP_TIMED_PERIODS
+    print(f"[{tag}] set-up (scenarios, plant, controller, maps) {setup_s:.3f} s; after it and "
+          f"a warm period {ms:.2f} ms/period over {SWEEP_TIMED_PERIODS} periods on {card}")
+    prof = profile_periods(step, ctrl, plant, n=2) or {}
+    return {"setup_s": setup_s, "ms_per_period": ms,
+            "device_ms_per_period": prof.get("device_ms"),
+            "busy_pct": 100 * prof["device_ms"] / prof["wall_ms"] if prof else None,
+            "launches_per_period": prof.get("launches")}
+
+
+def _fused_build_only(tag: str, device, launches: dict, n: int) -> None:
+    if device.type == "cuda":       # the counts count CUDA launches only
+        check(launches == {"fused_stagewise_solve_srb": n},
+              f"{tag}: expected {n} fused-build launches and no other, counted {launches}")
+
+
+def gait_sweep(device, card: str, phases: int = CONFIG3_PHASES,
+               periods: int = CONFIG3_PERIODS, split: int = CONFIG3_SPLIT) -> dict:
+    """Phase 16b, BASELINE.json config 3: SweepSpec()'s four gaits x `phases`
+    phase offsets under the reference disturbance at vx = 0.3, "ls" on the
+    discrete residual, stagewise ADMM-30 at h = 10 in the fused-build kernel,
+    `periods` periods: every metric finite, one fused_stagewise_solve_srb
+    launch a period and no other; again split over `split` entries of the
+    card, held to the first (atol 5e-4, rtol 1e-3, the tie rule).  Returns
+    the fused-build launches of the unsplit and of the split run, and the
+    figures of PERF.md's "where the time goes"."""
+    import torch
+
+    from quad_periodic_mpc_tpu_torch.config import ADMMConfig
+    from quad_periodic_mpc_tpu_torch.parallel import dryrun
+    from quad_periodic_mpc_tpu_torch.parallel import mesh as ML
+    from quad_periodic_mpc_tpu_torch.parallel import sweep as SW
+
+    tag = "config 3"
+    spec = SW.SweepSpec(phase_offsets=phases)
+    kw = dict(solver=ADMMConfig(iterations=ADMM_ITERS, formulation="stagewise",
+                                backend="pallas"))
+    res, launches, info = timed_sweep(tag, device, card, spec, periods, **kw)
+    _fused_build_only(tag, device, launches, periods)
+    per_gait = res.vx_rms.reshape(len(spec.gait_names), -1).double().cpu()
+    q = torch.quantile(per_gait, torch.tensor([0.05, 0.5, 0.95], dtype=torch.float64), dim=1)
+    for i, name in enumerate(spec.gait_names):
+        print(f"[{tag}] {name}: vx_rms p5 {float(q[0, i]):.5f}, p50 {float(q[1, i]):.5f}, "
+              f"p95 {float(q[2, i]):.5f}")
+    if device.type == "cuda":
+        info.update(sweep_periods(tag, spec, device, card, kw["solver"]))
+    mesh = ML.make_mesh(devices=[device] * split)
+    res_s, launches_s, info_s = timed_sweep(f"{tag} split", device, card, spec, periods, mesh=mesh,
+                                    **kw)
+    _fused_build_only(f"{tag} split", device, launches_s, periods * split)
+    gap = max(float((res_s.vx_rms - res.vx_rms).abs().max()),
+              float((res_s.height_rms - res.height_rms).abs().max()))
+    print(f"[{tag}] split over {split} entries against one: max gap {gap:.3g}, best instance "
+          f"{int(res_s.best_instance)} / {int(res.best_instance)}")
+    check(_close(res_s.vx_rms, res.vx_rms, dryrun.ATOL, dryrun.RTOL)
+          and _close(res_s.height_rms, res.height_rms, dryrun.ATOL, dryrun.RTOL),
+          f"{tag}: the split run differs from the unsplit one by {gap}")
+    check(SW.argmin_agrees(res.vx_rms, int(res.best_instance), int(res_s.best_instance),
+                           dryrun.ATOL, dryrun.RTOL), f"{tag}: the split run's best instance")
+    info["split_run_s"] = info_s["run_s"]
+    return (launches.get("fused_stagewise_solve_srb", 0),
+            launches_s.get("fused_stagewise_solve_srb", 0), info)
+
+
+def terrain_sweep(device, card: str, spec_kw=None, periods: int = CONFIG4_PERIODS) -> dict:
+    """Phase 16c, BASELINE.json config 4 at full width: the 10,000 scenarios
+    of tests/test_sweep_terrain.py::test_terrain_sweep_10k_scenarios (4
+    gaits x 5 phases x 5 static x 5 amplitude x (4 risers x 5 edges), a
+    32 x 32 map at 0.05 m each).  First the reference test's settings (2
+    periods, h = 4, condensed ADMM-20 in the "xla" loop) with its
+    assertions; then the production setting, h = 10, stagewise ADMM-30 in the
+    fused-build kernel, map-aware footholds and the map's body height,
+    `periods` periods: every metric finite, one launch a period and no
+    other.  Returns the production run's fused-build launches and the
+    figures of PERF.md's "where the time goes"."""
+    from quad_periodic_mpc_tpu_torch.config import ADMMConfig, MPCConfig
+    from quad_periodic_mpc_tpu_torch.parallel import sweep as SW
+
+    tag = "config 4"
+    spec = SW.SweepSpec(**(spec_kw or CONFIG4))
+    ref_periods, ref_h, ref_iters = CONFIG4_REFERENCE
+    res, launches, info_ref = timed_sweep(
+        f"{tag} reference settings", device, card, spec, ref_periods,
+        mpc_cfg=MPCConfig(horizon=ref_h), solver=ADMMConfig(iterations=ref_iters))
+    if device.type == "cuda":
+        check(not launches, f"{tag}: the xla loop launched {launches}")
+    kw = dict(solver=ADMMConfig(iterations=ADMM_ITERS, formulation="stagewise",
+                                backend="pallas"))
+    res, launches, info = timed_sweep(tag, device, card, spec, periods, **kw)
+    _fused_build_only(tag, device, launches, periods)
+    if device.type == "cuda":
+        info.update(sweep_periods(tag, spec, device, card, kw["solver"]))
+    info["reference_settings_run_s"] = info_ref["run_s"]
+    info["reference_settings_peak_mib"] = info_ref["peak_mib"]
+    return launches.get("fused_stagewise_solve_srb", 0), info
+
+
+def dist_on_card(device, card: str) -> None:
+    """Phase 16d: parallel/dist_check as one torch.distributed rank (NCCL on
+    the card, or Gloo on the CPU, through --init-method at world size 1) and
+    as one process without it, side by side: the two JSON lines equal on
+    every key, and the rank's two all_gathers (the errors and the final
+    states) taken through the group's backend."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    base = [sys.executable, "-m", "quad_periodic_mpc_tpu_torch.parallel.dist_check",
+            "--device", device.type]
+    cmds = [base, base + ["--init-method", f"tcp://127.0.0.1:{port}", "--world-size", "1",
+                          "--rank", "0"]]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              cwd=REPO) for c in cmds]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    lines = []
+    for p, (out, err) in zip(procs, outs):
+        check(p.returncode == 0, f"dist_check failed: {err[-2000:]}")
+        lines.append(json.loads([ln for ln in out.splitlines() if ln.startswith("{")][-1]))
+    one, rank = lines
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    gathers = [ln for ln in outs[1][1].splitlines() if ln.startswith("dist_check: all_gather")]
+    print("[dist] " + "; ".join(gathers))
+    check(len(gathers) == 2 and all(ln.endswith(f"over 1 rank(s), backend {backend}")
+                                    for ln in gathers),
+          f"dist_check as one rank: expected two {backend} all_gathers, saw {gathers}")
+    print(f"[dist] dist_check one process {json.dumps({k: v for k, v in one.items() if k != 'vx_rms'})}"
+          f"; as one {'NCCL' if device.type == 'cuda' else 'Gloo'} rank: "
+          f"{'equal on every key' if one == rank else 'DIFFERENT'} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    check(one == rank, f"dist_check: one rank {rank} against one process {one}")
+
+
+def sweeps(device, card: str) -> tuple[dict, dict, dict]:
+    """Phase 16.  Returns the launches of its counted runs by kernel, the
+    fused-build launches at each of the sweeps' SRB_SHAPES, and the two
+    sweeps' figures of PERF.md's "where the time goes"."""
+    t0 = time.perf_counter()
+    by_kernel = dryrun_on_card(device, card, ref=DRYRUN_REF)
+    g_one, g_split, g_info = gait_sweep(device, card)
+    t_one, t_info = terrain_sweep(device, card)
+    tier2 = by_kernel.get("fused_stagewise_solve_srb", 0)
+    by_kernel["fused_stagewise_solve_srb"] = tier2 + g_one + g_split + t_one
+    dist_on_card(device, card)
+    print(f"[sweeps] phase 16 took {time.perf_counter() - t0:.1f} s")
+    # tier 2's counted launches (checked against dryrun_expected) are its
+    # oracle's periods at B = 16 and those of the entries' chunks at B = 2
+    oracle = tier2 // (DRYRUN_ENTRIES + 1)
+    by_shape = {"config 3 sweep": g_one, "config 4 sweep": t_one,
+                "dry run tier 2": oracle, "dry run tier 2 chunk": tier2 - oracle}
+    return by_kernel, by_shape, {"config 3": g_info, "config 4": t_info}
+
+
 def slice5(device, card: str) -> dict:
     """Phases 11-13.  Returns the launches of their counted runs, by path
     and kernel."""
@@ -2469,23 +2909,34 @@ def main() -> int:
             if f"line {line[0]}" in srb_shapes:
                 srb_shapes[f"line {line[0]}"]["launches"] = counts["fused_stagewise_solve_srb"]
         solve_records["srb_build_dump"]["launches"] = dumps
-        for rec in [*solve_records.values(), *record["shapes"]]:
+        for rec in [*solve_records.values(),
+                    *(s for s in record["shapes"] if s["path"] not in SWEEP_SHAPES)]:
             check(rec["launches"] > 0, f"{rec.get('name', rec.get('path'))} was launched "
                   "on no driven path")
         slice4_records = slice4(device, card)
-        by_name = {r["name"]: r for r in (record, *solve_records.values(),
-                                          *slice4_records.values())}
+        by_name = {r["name"]: r for r in (record, *tick_records.values(),
+                                          *solve_records.values(), *slice4_records.values())}
         for path, counts in [*slice5(device, card).items(),
                              ("terrain", terrain_experiment(device, card))]:
             for name, n in counts.items():
                 check(n > 0, f"{name} was launched no time on the {path} path")
                 by_name[name].setdefault("launches_by_path", {})[path] = n
         elevation_mapping(device, card)
+        by_kernel, by_shape, sweep_figures = sweeps(device, card)
+        for name, n in by_kernel.items():
+            by_name[name].setdefault("launches_by_path", {})["sweeps"] = n
+        for path, n in by_shape.items():
+            srb_shapes[path]["launches"] = n
+            check(n > 0, f"fused_stagewise_solve_srb was launched no time at the {path} shape")
+        for name in ("fused_stagewise_solve_srb", "fused_admm_iterations", "fused_model_eval",
+                     "fused_wbc", "fused_substeps", "fused_contact_kinematics"):
+            check(by_kernel.get(name, 0) > 0, f"{name} was launched no time on the sweeps path")
         if "jax" in sys.modules or "quad_periodic_mpc_tpu" in sys.modules:
             raise SmokeFailure("JAX or the JAX package was imported")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    print("[sweep figures] " + json.dumps(sweep_figures))
     print(card)
     print(json.dumps({"kernels": [record, *tick_records.values(), *solve_records.values(),
                                   *slice4_records.values()]}))

@@ -51,7 +51,8 @@ def _preset_tables(period: int) -> dict[str, tuple[tuple[int, ...], tuple[int, .
 _FIXED_PERIODS: dict[str, int] = {"trot_long": 32}
 
 DEFAULT_PERIOD = 16
-PRESET_NAMES = tuple(_preset_tables(DEFAULT_PERIOD))
+PRESET_GAITS = _preset_tables(DEFAULT_PERIOD)
+PRESET_NAMES = tuple(PRESET_GAITS)
 
 
 def preset(name: str, period: int = DEFAULT_PERIOD, dtype=torch.int32,

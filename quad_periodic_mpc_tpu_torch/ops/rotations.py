@@ -13,9 +13,13 @@ import torch
 
 def quat_to_rpy(q: torch.Tensor) -> torch.Tensor:
     """Quaternion (w, x, y, z) -> (roll, pitch, yaw), with the reference's
-    asin clamp at 0.99999."""
+    asin clamp at 0.99999.  The argument is also clamped at -1 from below,
+    where the reference clamps nothing: at a pitch of -90 degrees (a falling
+    robot in a sweep) a unit quaternion's float32 argument can round below
+    -1 here and not in the reference's rounding, and asin would return NaN.
+    Every argument the reference takes without NaN gives the same pitch."""
     w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
-    as_ = torch.clamp(-2.0 * (x * z - w * y), max=0.99999)
+    as_ = torch.clamp(-2.0 * (x * z - w * y), min=-1.0, max=0.99999)
     yaw = torch.atan2(2.0 * (x * y + w * z), w * w + x * x - y * y - z * z)
     pitch = torch.asin(as_)
     roll = torch.atan2(2.0 * (y * z + w * x), w * w - x * x - y * y + z * z)
