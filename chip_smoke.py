@@ -170,6 +170,30 @@ result line) when it fails:
    prints its wall seconds, ms per period, busy share, launches and peak
    device memory, and the sweeps' figures as one "[sweep figures]" line
    after every phase has passed.
+17. the FSM and its controllers (slice 8): (a) the torque-level force stand
+   (control/force_stand.py: the reference's capstone,
+   tests/test_articulated_sim.py:57-125, with the safety post-check's
+   clamps and the FSM fed each tick) at B = 2,048 for 1,500 ticks, each
+   instance holding its own seeded target height: the balance QP (PDIP-25)
+   -> safety.run_checks -> the stance LegController -> fused_substeps, on
+   fused_model_eval's terms, exactly these two kernel launches a tick; every
+   instance meets the capstone's gates (|z - target| < 0.03, |quat[0]| >
+   0.99, max |v_body| < 0.6), every safety mask holds on every tick, every
+   FSM ends in BALANCE_STAND / NORMAL, instances 0-7 lie within 1e-4 of
+   JAX's figures (STAND_REF), the FSM trace replayed by the CPU port from the
+   copied masks is equal, and both kernels are held to their plain versions
+   on the first and last ticks' states; 17a runs in a spawned process, and
+   its loop is timed for a few ticks in this process before the spawn and
+   again after 17a's profiler session; (b) balance_vbl.solve at B = 2,048
+   on those stances (a seeded quarter on three legs), at the target and
+   displaced, the card against the CPU port (F and the CARE's P) and
+   tests/test_balance_vbl.py's equilibrium and restoring gates; (c) fleets
+   on the card and again on the CPU port: 2,048 FSMs for 1,200 ticks (EDAMP
+   reaching ESTOP), 2,048 gait schedulers through step_full for 1,000 ticks,
+   adaptive_gait_update, the poses, playback through a saved plan, the
+   filters, and the six wbc_tasks builders through wbic / kin_wbc, in
+   float64 and in float32 (WBC_LISTS).  17 prints ms per tick, the busy
+   share, launches and peak memory.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 object per kernel with its times and bound, and
@@ -347,6 +371,50 @@ CONFIG4 = dict(gait_names=("trotting", "bounding", "pacing", "galloping"), phase
 CONFIG4_REFERENCE, CONFIG4_PERIODS = (2, 4, 20), 20
 # each sweep's periods timed after its set-up and a warm period
 SWEEP_TIMED_PERIODS = 10
+# slice 8: the FSM and its controllers, phase 17.  17a: the torque-level
+# force stand (tests/test_articulated_sim.py:57-125 with the safety
+# post-check and the FSM; control/force_stand.py) at STAND_BATCH for
+# STAND_TICKS ticks, instance i's target height z0 + the seeded offset of
+# stand_offsets (instance 0: z0).  Its gates are the
+# capstone's on every instance; instances 0-7 (final z, quat[0], max|v_body|)
+# are held to JAX's figures for the same inputs (python
+# tools/slice8_reference.py: JAX's XLA path on the CPU, float32, B = 8, one
+# model evaluation a tick and ten step_fast substeps; the port on the CPU lies
+# within 2.7e-6 of them)
+STAND_BATCH, STAND_TICKS, STAND_SEED = 2048, 1500, 1208
+# 17a's loop timed from its start for this many ticks in its fresh process,
+# again there after its profiler session, and in the smoke run's own process
+# after phases 1-16: a torch.profiler session leaves the host's loop slower
+# for the rest of the process (PERF.md section 7)
+STAND_RETIMED_TICKS = 30
+STAND_GATES = {"z": 0.03, "quat0": 0.99, "vmax": 0.6}
+STAND_REF = [[0.2811795, 0.9999914, 0.0017293], [0.2897912, 0.9999913, 0.0034784],
+             [0.2972397, 0.9999913, 0.0050509], [0.2970431, 0.9999913, 0.0050079],
+             [0.2977056, 0.9999913, 0.0051483], [0.2801622, 0.9999914, 0.0015257],
+             [0.2712039, 0.9999913, 0.0008054], [0.2750154, 0.9999913, 0.0008011]]
+STAND_REF_TOL = 1e-4
+# 17b: the card against the CPU port on the same inputs; F relative to the
+# instance's largest force (at least 1 N), so the pinned legs' ~0 forces are
+# held absolutely (reference_grf's 1e9 penalty makes their last digits
+# library-dependent); P of the CARE relative to its largest entry
+VBL_TOL = {"F": 1e-3, "P": 1e-4}
+# 17c: the fleets, each against the CPU port on the same inputs: integers and
+# flags equal, floats within FLEET_TOL (elementwise float32 operations, and
+# the poses' 3 x 3 products).  The WBC tasks through wbic, with the
+# reference test's list (RyRz, then the joint task) and a list of
+# independent rows (RyRz, roll, a foot relative to another): in float64
+# both lists' torques within WBC_TASK_TOL of their size (pseudo-inverses and
+# the relaxation PDIP summed in another order); in float32 the second
+# list's within WBC_TASK_F32_TOL (the CPU port's float32 torques lie 2.2e-4
+# of their size from float64 on 17a's final states, as this phase prints;
+# two such answers up to twice that apart), and the reference list's finite
+# on both: its damped Gram reaches cond ~1e6, and there the CPU port's
+# float32 torques lie up to 2.6x their size from float64 (JAX's go further:
+# tests/test_torch_wbc_tasks.py::test_wbic_reference_list_float32_finite_like_jax)
+FLEET_B, FLEET_FSM_TICKS, FLEET_GAIT_TICKS, FLEET_DT = 2048, 1200, 1000, 0.002
+FLEET_TOL, WBC_TASK_TOL, WBC_TASK_F32_TOL = 1e-6, 1e-4, 1e-3
+WBC_LISTS = {"reference": ("ryrz", "jpos"), "independent": ("ryrz", "roll", "local_pos")}
+QUEUE_SLEEP_CYCLES = 200_000_000     # ~0.1 s at the H100's clock: longer than 21 calls' issue
 # H100 SXM: HBM3 rate and float32 (non-tensor-core) peak, NVIDIA data sheet
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
@@ -2849,6 +2917,652 @@ def sweeps(device, card: str) -> tuple[dict, dict, dict]:
     return by_kernel, by_shape, {"config 3": g_info, "config 4": t_info}
 
 
+def _on(device, a, dtype=None):
+    """numpy -> tensor on ``device`` (float64 arrays as float32 unless
+    ``dtype`` says otherwise)."""
+    import numpy as np
+    import torch
+
+    a = np.asarray(a)
+    t = torch.from_numpy(a.copy())
+    if dtype is not None:
+        t = t.to(dtype)
+    elif a.dtype == np.float64:
+        t = t.to(torch.float32)
+    return t.to(device)
+
+
+def stand_offsets(B: int, seed: int = STAND_SEED):
+    """17a's target height offsets, uniform in [-0.02, 0.02] m (instance 0:
+    0); a prefix of a longer draw, so B = 8 gives the first eight of
+    B = 2,048."""
+    import numpy as np
+
+    d = np.random.default_rng(seed).uniform(-0.02, 0.02, B)
+    d[0] = 0.0
+    return d
+
+
+def stand_request(k: int) -> int:
+    """17a's FSM request at tick k: STAND_UP at tick 0, BALANCE_STAND from
+    tick 1."""
+    from quad_periodic_mpc_tpu_torch.control.fsm import BALANCE_STAND, STAND_UP
+
+    return STAND_UP if k == 0 else BALANCE_STAND
+
+
+def three_leg_contacts(B: int, seed: int = STAND_SEED + 1):
+    """17b's contact pattern: a seeded quarter of the instances with one
+    seeded leg lifted."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    c = np.ones((B, 4))
+    lifted = rng.permutation(B)[: B // 4]
+    c[lifted, rng.integers(0, 4, lifted.size)] = 0.0
+    return c
+
+
+def vbl_inputs(com, footholds_rel) -> dict:
+    """17b's inputs (numpy) from the stand's final states: the body at the
+    target pose (x = x_des, at rest, level), the final stance feet relative
+    to the CoM, three_leg_contacts."""
+    import numpy as np
+
+    B = com.shape[0]
+    eye = np.tile(np.eye(3), (B, 1, 1))
+    return dict(x_com=com, v_com=np.zeros((B, 3)), R_body=eye, omega_world=np.zeros((B, 3)),
+                p_feet_des_rel=footholds_rel, x_des=com, v_des=np.zeros((B, 3)), R_des=eye,
+                omega_des_world=np.zeros((B, 3)), contact=three_leg_contacts(B))
+
+
+def stand_start(device, B: int):
+    """17a's start: (mc, plant, stand target, FSMs, the two requests)."""
+    import torch
+
+    from quad_periodic_mpc_tpu_torch.control import force_stand as FSt
+    from quad_periodic_mpc_tpu_torch.control import fsm
+    from quad_periodic_mpc_tpu_torch.sim import articulated_sim as art
+
+    mc = art.mc_cache(torch.float32, device)
+    plant = art.init_on_ground((B,), penetration=3.8e-3, device=device)
+    stand = FSt.target(plant, mc, _on(device, stand_offsets(B)))
+    reqs = [torch.full((B,), stand_request(k), dtype=torch.int32, device=device) for k in (0, 1)]
+    return mc, plant, stand, fsm.init((B,), device=device), reqs
+
+
+def stand_tick_ms(device, B: int = STAND_BATCH, ticks: int = STAND_RETIMED_TICKS) -> float:
+    """ms a tick of 17a's loop over ``ticks`` ticks from its start."""
+    from quad_periodic_mpc_tpu_torch.control import force_stand as FSt
+
+    mc, plant, stand, f, reqs = stand_start(device, B)
+    plant, f, _ = FSt.tick(plant, f, reqs[0], stand, mc)
+    _sync(device)
+    t0 = time.perf_counter()
+    for _ in range(ticks):
+        plant, f, _ = FSt.tick(plant, f, reqs[1], stand, mc)
+    _sync(device)
+    return 1e3 * (time.perf_counter() - t0) / ticks
+
+
+def force_stand(device, card: str, B: int = STAND_BATCH, ticks: int = STAND_TICKS) -> dict:
+    """Phase 17a: the torque-level force stand at B instances for `ticks`
+    ticks through control/force_stand.tick (the balance QP, the safety
+    post-check with its clamps, the stance LegController, the FSM; one
+    fused_model_eval and one fused_substeps launch a tick).  Returns the
+    counted launches by kernel and the final plant and targets."""
+    import torch
+
+    from quad_periodic_mpc_tpu_torch.control import force_stand as FSt
+    from quad_periodic_mpc_tpu_torch.control import fsm
+    from quad_periodic_mpc_tpu_torch.ops.cuda import kinematics_kernel as KK
+    from quad_periodic_mpc_tpu_torch.ops.cuda import plant_kernel as PK
+    from quad_periodic_mpc_tpu_torch.sim import articulated_sim as art
+    from quad_periodic_mpc_tpu_torch.testing import kernel_cases as KC
+
+    fresh = stand_tick_ms(device, B)
+    mc, plant, stand, f, reqs = stand_start(device, B)
+    states = torch.empty((ticks, B), dtype=torch.int32, device=device)
+    masks = torch.empty((ticks, 2, B), dtype=torch.bool, device=device)
+    held = torch.ones(B, dtype=torch.bool, device=device)
+    saved = {}
+    reset_all_counts()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    _sync(device)
+    t0 = time.perf_counter()
+    for k in range(ticks):
+        before = plant
+        plant, f, rec = FSt.tick(plant, f, reqs[min(k, 1)], stand, mc)
+        if k in (0, ticks - 1):
+            saved[k] = (before, rec.tau)
+        held &= rec.safe_orientation & rec.locomotion_safe & rec.safe_p_des & rec.safe_force
+        states[k] = f.state
+        masks[k, 0] = rec.safe_orientation
+        masks[k, 1] = rec.locomotion_safe
+    _sync(device)
+    wall = time.perf_counter() - t0
+    counts = all_launch_counts()
+    peak = torch.cuda.max_memory_allocated(device) / 2**20 if device.type == "cuda" else 0.0
+    launches = {n: counts[n] for n in ("fused_model_eval", "fused_substeps")}
+    if device.type == "cuda":
+        check(launches == {"fused_model_eval": ticks, "fused_substeps": ticks}
+              and sum(counts.values()) == 2 * ticks,
+              f"force stand: expected one fused_model_eval and one fused_substeps launch a "
+              f"tick and no other kernel over {ticks} ticks, saw {counts}")
+
+    def step(fs, pl):
+        pl, fs, _ = FSt.tick(pl, fs, reqs[1], stand, mc)
+        return fs, pl
+
+    prof = profile_periods(step, f, plant, n=3, unit="tick") if device.type == "cuda" else None
+    after = stand_tick_ms(device, B)
+    print(f"[force stand] B={B}, {STAND_RETIMED_TICKS} ticks from the start: {fresh:.3f} ms a "
+          f"tick in this process before the counted run, {after:.3f} after its profiler session")
+    print(f"[force stand] B={B}, {ticks} ticks: {1e3 * wall / ticks:.3f} ms a tick "
+          f"({wall:.1f} s), {sum(launches.values()) / ticks:.0f} kernel launches a tick "
+          f"({launches}), busy {'not measured' if prof is None else f'{100 * prof['device_ms'] / prof['wall_ms']:.1f}%'}"
+          f", {'' if prof is None else f'{prof['launches']} launches of any kind a tick, '}"
+          f"peak device memory {peak:.0f} MiB on {card}")
+
+    # the capstone's gates (tests/test_articulated_sim.py:118-124) on every instance
+    s = plant.fb
+    z_err = (s.pos[:, 2] - stand.com[:, 2]).abs()
+    quat0 = s.quat[:, 0].abs()
+    vmax = s.v_body.abs().amax(-1)
+    print(f"[force stand] worst instance: |z - target| {float(z_err.max()):.6f} (gate "
+          f"{STAND_GATES['z']}), |quat[0]| {float(quat0.min()):.7f} (> {STAND_GATES['quat0']}), "
+          f"max |v_body| {float(vmax.max()):.6f} (< {STAND_GATES['vmax']})")
+    check(bool((z_err < STAND_GATES["z"]).all()), "force stand: a body height left the target")
+    check(bool((quat0 > STAND_GATES["quat0"]).all()), "force stand: an attitude did not stay level")
+    check(bool((vmax < STAND_GATES["vmax"]).all()), "force stand: a body did not come to rest")
+    check(bool(held.all()), "force stand: a safety mask failed or a clamp bound on some tick")
+    check(bool((f.state == fsm.BALANCE_STAND).all() and (f.mode == fsm.NORMAL).all()),
+          "force stand: an FSM did not end in BALANCE_STAND / NORMAL")
+    # instances 0-7 against JAX's figures for the same inputs
+    ours = torch.stack([s.pos[:8, 2], s.quat[:8, 0], vmax[:8]], -1).cpu().tolist()
+    worst = max(abs(a - b) for row, ref in zip(ours, STAND_REF) for a, b in zip(row, ref))
+    print(f"[force stand] instances 0-7 (z, quat[0], max|v_body|) against JAX's: largest gap "
+          f"{worst:.3g} (tol {STAND_REF_TOL}); instance 0 {[round(v, 7) for v in ours[0]]}")
+    check(worst <= STAND_REF_TOL, f"force stand: instances 0-7 {ours} against JAX's {STAND_REF}")
+    # the FSM trace replayed by the CPU port from the copied masks
+    m_cpu, s_cpu = masks.cpu(), states.cpu()
+    fc = fsm.init((B,), device="cpu")
+    req_cpu = [r.cpu() for r in reqs]
+    replay = torch.empty_like(s_cpu)
+    for k in range(ticks):
+        fc = fsm.step(fc, req_cpu[min(k, 1)], m_cpu[k, 0], m_cpu[k, 1])
+        replay[k] = fc.state
+    check(torch.equal(replay, s_cpu), "force stand: the FSM trace differs from the CPU port's")
+    print(f"[force stand] FSM trace ({ticks} x {B} states) replayed on the CPU port: equal")
+
+    # rows 2 and 4 against their plain versions on the first and last ticks' states
+    eye = torch.eye(18, device=device)
+    for k, (pl, tau) in sorted(saved.items()):
+        A, Ainv, G, C, info = KK.fused_model_eval(pl.fb, mc)
+        A_r, _, G_r, C_r, info_r = KK.model_eval_reference(pl.fb, mc)
+        errs = {"A": _maxdiff(A, A_r), "G": _maxdiff(G, G_r), "C": _maxdiff(C, C_r),
+                "Jc": _maxdiff(info.Jc, info_r.Jc), "p_foot": _maxdiff(info.p_foot, info_r.p_foot),
+                "Jcdqd": _maxdiff(info.Jcdqd, info_r.Jcdqd), "AinvA-I": _maxdiff(Ainv @ A, eye)}
+        args = (pl, tau, 1e-4, art.ContactParams(), (Ainv, G, C), info.Jc, info.p_foot, 10)
+        (pb, pf_b), (pa, pf_a) = PK.fused_substeps(*args), PK.fused_substeps_reference(*args)
+        p_errs = {n: _maxdiff(getattr(pb.fb, n), getattr(pa.fb, n))
+                  for n in ("pos", "quat", "v_body", "q", "qd")}
+        p_errs.update(p_foot=_maxdiff(pf_b, pf_a), anchor=_maxdiff(pb.anchor, pa.anchor))
+        print(f"[force stand] tick {k} state, B={B}: fused_model_eval " + ", ".join(
+            f"max|d{n}|={e:.3g}" for n, e in errs.items()) + "; fused_substeps " + ", ".join(
+            f"max|d{n}|={e:.3g}" for n, e in p_errs.items()))
+        for n, e in errs.items():
+            check(e <= KC.MODEL_TOL[n], f"force stand: fused_model_eval max|d{n}|={e} at tick {k}")
+        for n, e in p_errs.items():
+            check(e <= KC.PLANT_TOL[n], f"force stand: fused_substeps max|d{n}|={e} at tick {k}")
+        check(torch.equal(pb.in_contact, pa.in_contact), "force stand: contact flags differ")
+    timing = {}
+    if device.type == "cuda":
+        pl, tau = saved[ticks - 1]
+        _, Ainv, G, C, info = KK.fused_model_eval(pl.fb, mc)
+        args = (pl, tau, 1e-4, art.ContactParams(), (Ainv, G, C), info.Jc, info.p_foot, 10)
+        timing["fused_model_eval"] = (queued_ms(lambda: KK.fused_model_eval(pl.fb, mc)),
+                                      time_ms(lambda: KK.fused_model_eval(pl.fb, mc), 20))
+        timing["fused_substeps"] = (queued_ms(lambda: PK.fused_substeps(*args)),
+                                    time_ms(lambda: PK.fused_substeps(*args), 20))
+        for (name, (ms, call)), key, flops_per in zip(
+                timing.items(), ("model", "plant"), (model_eval_flops(), substep_flops(10))):
+            per_in, per_out, shared = TICK_FLOATS[key]
+            bound_ms, bound_by = bound(B * flops_per, 4 * (B * (per_in + per_out) + shared))
+            print(f"[force stand] {name} B={B}: {ms:.4f} ms per call on the device (queued "
+                  f"behind a sleep), {call:.4f} ms per call as issued, bound {bound_ms:.5f} ms "
+                  f"({bound_by}) on {card}")
+    return {"launches": launches, "plant": plant, "stand": stand, "timing": timing}
+
+
+def queued_ms(fn, reps: int = 20) -> float:
+    """ms per call on the device, the calls queued behind a sleep kernel so
+    that the host's issue of them is not counted (tools/time_tick_cuda.py's
+    device_ms); CUDA events, no profiler."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+    fn()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def stand_job(job: dict) -> dict:
+    """Phase 17a in a process of its own: a torch.profiler session leaves
+    the host's loop slower for the rest of its process (PERF.md section 7),
+    and the earlier phases profile; here the counted run comes before the
+    process's one session.  Returns the counted launches, the kernel
+    timings and the final state and targets as CPU tensors."""
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    import quad_periodic_mpc_tpu_torch  # noqa: F401  (sets the f32 policy)
+
+    device = torch.device(job["device"])
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    res = force_stand(device, job["card"], job["B"], job["ticks"])
+    if "jax" in sys.modules or "quad_periodic_mpc_tpu" in sys.modules:
+        raise SmokeFailure("JAX or the JAX package was imported in the force stand's process")
+    return {"launches": res["launches"], "timing": res["timing"],
+            "fb": [a.cpu() for a in res["plant"].fb],
+            "target": [a.cpu() for a in res["stand"]]}
+
+
+def vbl_on_card(device, card: str, state, stand) -> None:
+    """Phase 17b: balance_vbl.solve at B on 17a's final stances, at the
+    target pose and displaced +0.05 m in x, a seeded quarter on three legs;
+    the card against the CPU port on the same inputs (F, and P of the
+    CARE), and tests/test_balance_vbl.py:82-98's gates on every instance
+    with four feet in stance."""
+    import torch
+
+    from quad_periodic_mpc_tpu_torch.control import balance_vbl as vbl
+    from quad_periodic_mpc_tpu_torch.models import floating_base as fb
+    from quad_periodic_mpc_tpu_torch.sim import articulated_sim as art
+
+    mc = art.mc_cache(torch.float32, device)
+    feet = fb.contact_jacobians(state, mc).p_foot
+    com = stand.com.cpu().numpy()
+    base = vbl_inputs(com, (feet - stand.com[:, None, :]).cpu().numpy())
+    cfg = vbl.VBLSettings()
+    for label, dx in (("at the target", 0.0), ("displaced +0.05 m in x", 0.05)):
+        inp = dict(base, x_com=com + [dx, 0.0, 0.0])
+        on = {k: _on(device, v) for k, v in inp.items()}
+        _sync(device)
+        t0 = time.perf_counter()
+        F = vbl.solve(**on)
+        _sync(device)
+        ms = 1e3 * (time.perf_counter() - t0)
+        on_cpu = {k: _on("cpu", v) for k, v in inp.items()}
+        t0 = time.perf_counter()
+        Fc = vbl.solve(**on_cpu)
+        cpu_ms = 1e3 * (time.perf_counter() - t0)
+        F, P, Pc = F.cpu(), vbl.variation_lqr(**on).P.cpu(), vbl.variation_lqr(**on_cpu).P
+        eF = float(((F - Fc).abs().amax((-1, -2)) / Fc.abs().amax((-1, -2)).clamp(min=1.0)).max())
+        eP = float(((P - Pc).abs().amax((-1, -2)) / Pc.abs().amax((-1, -2))).max())
+        f_ref = vbl.reference_grf(on["p_feet_des_rel"], on["contact"], cfg).cpu()
+        print(f"[vbl] B={F.shape[0]} {label}: card {ms:.1f} ms, CPU port {cpu_ms:.1f} ms; "
+              f"card vs CPU: F {eF:.3g} (tol {VBL_TOL['F']}), P {eP:.3g} (tol {VBL_TOL['P']}) "
+              f"relative, largest |P| {float(Pc.abs().max()):.6g} on {card}")
+        check(bool(torch.isfinite(F).all() and torch.isfinite(P).all()), "vbl: not finite")
+        check(eF <= VBL_TOL["F"] and eP <= VBL_TOL["P"], f"vbl {label}: card vs CPU F {eF}, P {eP}")
+        # the reference test's gates are for four feet in stance: on three,
+        # the foot diagonal to the lifted one gets f_ref ~ 0 and the QP's
+        # 10 N minimum moves it off the reference by design
+        four = on["contact"].cpu().sum(-1) == 4
+        F4, f_ref4 = F[four], f_ref[four]
+        if dx == 0.0:
+            gap = float((F4 - f_ref4).abs().max())
+            print(f"[vbl]   equilibrium, {int(four.sum())} four-legged instances: max |F - "
+                  f"f_ref| {gap:.4f} (gate 0.5)")
+            check(gap < 0.5, f"vbl: equilibrium forces {gap} from f_ref")
+        else:
+            fx = F4[..., 0].sum(-1)
+            cone = (F4[..., 0] - f_ref4[..., 0]).abs() - cfg.mu * 0.7071 * f_ref4[..., 2]
+            print(f"[vbl]   restoring: largest sum f_x {float(fx.max()):.3f} (gate < -5), "
+                  f"largest cone excess {float(cone.max()):.3g} (gate 1e-4)")
+            check(bool((fx < -5.0).all()), "vbl: a displaced instance got no restoring force")
+            check(bool((cone <= 1e-4).all()), "vbl: the linearized friction cone was left")
+
+
+def _fleet_equal(tag: str, card_vals: dict, cpu_vals: dict, tol: float = 0.0) -> None:
+    for name, v in card_vals.items():
+        c = cpu_vals[name]
+        v = v.cpu()
+        if tol and v.dtype.is_floating_point:
+            gap = float((v - c).abs().max())
+            check(gap <= tol, f"{tag}: {name} {gap} from the CPU port's (tol {tol})")
+        else:
+            check(torch_equal(v, c), f"{tag}: {name} differs from the CPU port's")
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and a.dtype == b.dtype and bool(torch.equal(a, b))
+
+
+def fsm_fleet(device, B: int, ticks: int, rng_seed: int = 17):
+    """2,048 FSMs under seeded requests, masks and completion flags; returns
+    the traces of (state, mode, damp_iter) and ms a tick."""
+    import numpy as np
+    import torch
+
+    from quad_periodic_mpc_tpu_torch.control import fsm
+
+    rng = np.random.default_rng(rng_seed)
+    pool = np.array([fsm.PASSIVE, fsm.STAND_UP, fsm.BALANCE_STAND, fsm.LOCOMOTION,
+                     fsm.RECOVERY_STAND, fsm.LAY_DOWN, fsm.VISION, fsm.BACKFLIP, fsm.TESTING,
+                     fsm.TESTING_CV], np.int32)
+    req = pool[rng.integers(0, pool.size, (ticks, B))]
+    hold = rng.integers(1, 50, (ticks, B))
+    for k in range(1, ticks):
+        req[k] = np.where(k % hold[k] != 0, req[k - 1], req[k])
+    req[:20, : B // 4] = fsm.STAND_UP
+    safe = rng.uniform(size=(ticks, B)) > 0.01
+    safe[30:, : B // 4] = False                  # a long fault: EDAMP, then ESTOP at 1,000
+    loco = rng.uniform(size=(ticks, B)) > 0.02
+    done = rng.uniform(size=(ticks, B)) > 0.3
+    inputs = [_on(device, a) for a in (req, safe, loco, done)]
+    f = fsm.init((B,), device=device)
+    out = {n: torch.empty((ticks, B), dtype=torch.int32, device=device)
+           for n in ("state", "mode", "damp_iter")}
+    _sync(device)
+    t0 = time.perf_counter()
+    for k in range(ticks):
+        f = fsm.step(f, *(a[k] for a in inputs))
+        for n in out:
+            out[n][k] = getattr(f, n)
+    _sync(device)
+    return out, 1e3 * (time.perf_counter() - t0) / ticks
+
+
+def gait_fleet(device, B: int, ticks: int, dt: float = FLEET_DT, rng_seed: int = 23):
+    """2,048 gait schedulers through step_full with seeded gait types (all
+    15), override modes 0 / 2 / 4 and user periods that change every 1-80
+    ticks; returns the contact / touchdown / liftoff traces, the phases
+    every 100 ticks, and ms a tick."""
+    import numpy as np
+    import torch
+
+    from quad_periodic_mpc_tpu_torch.ops import gait_scheduler as gs
+
+    rng = np.random.default_rng(rng_seed)
+    mode = rng.choice(np.array([0, 2, 4], np.int32), B)
+    gait = rng.integers(0, 15, (ticks, B)).astype(np.int32)
+    period = rng.uniform(0.3, 0.9, (ticks, B)).astype(np.float32)
+    switching = rng.uniform(0.3, 0.8, B).astype(np.float32)
+    change = rng.integers(1, 80, B)
+    for k in range(1, ticks):
+        keep = k % change != 0
+        gait[k] = np.where(keep, gait[k - 1], gait[k])
+        period[k] = np.where(keep, period[k - 1], period[k])
+    mode_t, sw_t = _on(device, mode), _on(device, switching)
+    gait_t, period_t = _on(device, gait), _on(device, period)
+    gd = gs.gait_data_init((B,), gait="trot", device=device)
+    out = {"contact": torch.empty((ticks, B, 4), device=device),
+           "touchdown": torch.empty((ticks, B, 4), dtype=torch.bool, device=device),
+           "liftoff": torch.empty((ticks, B, 4), dtype=torch.bool, device=device),
+           "current_gait": torch.empty((ticks, B), dtype=torch.int32, device=device)}
+    phases = []
+    _sync(device)
+    t0 = time.perf_counter()
+    for k in range(ticks):
+        gd, o = gs.step_full(gd, dt, override_mode=mode_t, user_gait=gait_t[k],
+                             user_period=period_t[k], user_switching=sw_t)
+        out["contact"][k], out["touchdown"][k], out["liftoff"][k] = o.contact, o.touchdown, o.liftoff
+        out["current_gait"][k] = gd.current_gait
+        if k % 100 == 99:
+            phases.append(gd.phase)
+    _sync(device)
+    ms = 1e3 * (time.perf_counter() - t0) / ticks
+    return out, torch.stack(phases), ms
+
+
+def small_fleets(device, n: int = FLEET_B) -> dict:
+    """adaptive_gait_update, the poses, playback over a synthesized plan saved
+    and loaded through a temporary file, and the filters, at B = n from
+    seeded inputs; returns every output by name."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from quad_periodic_mpc_tpu_torch.control import cmpc_variant as cv
+    from quad_periodic_mpc_tpu_torch.control import playback, poses
+    from quad_periodic_mpc_tpu_torch.ops import gait as gait_ops
+    from quad_periodic_mpc_tpu_torch.utils import filters
+
+    rng = np.random.default_rng(29)
+    names = ["trotting", "bounding", "pronking", "pacing", "galloping", "walking"]
+    g = gait_ops.stacked_presets(names, device=device)
+    idx = _on(device, rng.integers(0, len(names), n))
+    g = type(g)(*(leaf[idx] for leaf in g))
+    swing = rng.uniform(0.0, 1.0, (n, 4)).astype(np.float32)
+    phase = rng.uniform(0.0, 1.0, n).astype(np.float32)
+    sensor = (rng.uniform(size=(n, 4)) > 0.4).astype(np.float32)
+    out = {}
+    g2 = cv.adaptive_gait_update(g, *(_on(device, a) for a in (swing, phase, sensor)))
+    out.update(adaptive_offsets=g2.offsets, adaptive_durations=g2.durations)
+
+    t = _on(device, rng.uniform(-0.5, 2.5, n))
+    feet = _on(device, rng.uniform(-0.3, 0.1, (n, 4, 3)))
+    q, _ = np.linalg.qr(rng.normal(size=(n, 3, 3)))
+    z0 = _on(device, rng.uniform(-0.15, -0.05, (n, 4)))
+    for tag, cmd in (("stand_up", poses.stand_up_impedance(t, feet, _on(device, q))),
+                     ("lay_down", poses.lay_down(t, feet, z0)),
+                     ("fold", poses.joint_ramp(t, feet, "fold", 1.5)),
+                     ("rollover", poses.joint_ramp(t, feet, "rollover", 1.5))):
+        out.update({f"{tag}.{k}": v for k, v in cmd._asdict().items()})
+
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/plan.dat"
+        playback.save_plan(path, playback.synthesize_jump_plan(800))
+        plan = playback.load_plan(path, device=device)
+    its = _on(device, rng.integers(-5, 820, n).astype(np.int32))
+    prep = _on(device, rng.uniform(size=n) > 0.5)
+    out.update({f"playback.{k}": v for k, v in
+                playback.playback_command(plan, its, prep)._asdict().items()})
+
+    x = _on(device, np.sin(np.arange(300)[:, None] * 0.05 + rng.uniform(0, 6, n))
+            + 0.1 * rng.normal(size=(300, n)))
+    lp = filters.LowPassState(torch.zeros(n, device=device))
+    bi_init, bi = filters.make_digital_lp(30.0, 0.002)
+    de_init, de = filters.make_deriv_lp(60.0, 0.002)
+    b, dd = bi_init((n,), device=device), de_init((n,), device=device)
+    m = filters.moving_average_init(7, (n,), device=device)
+    ys = []
+    for k in range(x.shape[0]):
+        (lp, y1), (b, y2), (dd, y3), (m, y4) = (filters.first_order_lp(lp, x[k], 0.2), bi(b, x[k]),
+                                                 de(dd, x[k]), filters.moving_average(m, x[k]))
+        ys.append(torch.stack([y1, y2, y3 / 100.0, y4]))   # the derivative's scale ~1/dt
+    out["filters"] = torch.stack(ys)
+    return out
+
+
+def wbc_tasks_on(device, plant_cpu, info_cpu, model_cpu) -> dict:
+    """The six wbc_tasks builders on the given states (CPU tensors, copied to
+    ``device`` in their dtype), then wbic with each task list of WBC_LISTS
+    and kin_wbc with the body-pinned contact and the joint task; returns
+    every output."""
+    import torch
+
+    from quad_periodic_mpc_tpu_torch.control import wbc, wbc_tasks
+    from quad_periodic_mpc_tpu_torch.control.force_stand import total_mass
+    from quad_periodic_mpc_tpu_torch.models import floating_base as fb
+
+    st = fb.FBState(*(a.to(device) for a in plant_cpu))
+    info = fb.ContactInfo(*(a.to(device) for a in info_cpu))
+    A, Ainv, cori, grav = (a.to(device) for a in model_cpu)
+    B, kw = st.pos.shape[0], {"dtype": st.pos.dtype, "device": device}
+    quat_des = torch.tensor([1.0, 0.0, 0.0, 0.0], **kw).expand(B, 4)
+    tasks = {
+        "jpos": wbc_tasks.jpos_task(st, st.q + 0.05),
+        "ryrz": wbc_tasks.body_ryrz_task(st, quat_des),
+        "ryrz_rpy": wbc_tasks.body_ryrz_task_rpy(st, torch.full((B, 3), 0.02, **kw)),
+        "local_pos": wbc_tasks.local_pos_task(st, info, 2, 3,
+                                              info.p_foot[:, 2] - info.p_foot[:, 3] + 0.01),
+        "posture": wbc_tasks.body_posture_task(st, quat_des, st.pos + 0.01),
+        "roll": wbc_tasks.local_roll_task(st, torch.full((B,), 0.02, **kw)),
+    }
+    out = {f"{k}.{i}": v for k, tup in tasks.items() for i, v in enumerate(tup)}
+    Jc6 = wbc_tasks.fixed_body_contact((B,), **kw)[0]
+    out["fixed.Jc"] = Jc6
+    gains = wbc.WBCGains()
+    out["kin_wbc.q"], out["kin_wbc.qd"] = wbc.kin_wbc(
+        st, Jc6, [tasks["jpos"][0]], [tasks["jpos"][1]], [tasks["jpos"][2]], gains)
+    fr_des = torch.zeros((B, 4, 3), **kw)
+    fr_des[..., 2] = total_mass() * 9.81 / 4
+    for name, names in WBC_LISTS.items():
+        pick = [tasks[k] for k in names]
+        tau, fr, qddot = wbc.wbic(st, A, Ainv, cori, grav, info.Jc, info.Jcdqd,
+                                  [t[0] for t in pick], [t[3] for t in pick],
+                                  [t[4] for t in pick], fr_des, torch.ones((B, 4), **kw), gains)
+        out.update({f"wbic {name}.tau": tau, f"wbic {name}.fr": fr,
+                    f"wbic {name}.qddot": qddot})
+    return out
+
+
+def wbc_tasks_fleet(device, card: str, state) -> None:
+    """17c's WBC tasks on 17a's final states, in float64 and in their own
+    float32, on the card and on the CPU port with the CPU port's model
+    terms."""
+    import torch
+
+    from quad_periodic_mpc_tpu_torch.models import floating_base as fb
+    from quad_periodic_mpc_tpu_torch.ops import linalg
+
+    def rel(a, b):
+        """Largest |a - b| over the largest |b| (at least 1)."""
+        return float((a - b).abs().max() / b.abs().max().clamp(min=1.0))
+
+    outs = {}
+    for dtype in (torch.float64, torch.float32):
+        cpu_plant = fb.FBState(*(a.cpu().to(dtype) for a in state))
+        mc = fb.build_a1_constants(str(dtype).split(".")[-1], "cpu")
+        A = fb.mass_matrix(cpu_plant, mc)
+        model = (A, linalg.spd_inverse(A), fb.generalized_coriolis(cpu_plant, mc),
+                 fb.generalized_gravity(cpu_plant, mc))
+        info = fb.contact_jacobians(cpu_plant, mc)
+        _sync(device)
+        t1 = time.perf_counter()
+        card_w = wbc_tasks_on(device, cpu_plant, info, model)
+        _sync(device)
+        ms = 1e3 * (time.perf_counter() - t1)
+        card_w = {k: v.cpu() for k, v in card_w.items()}
+        outs[dtype] = card_w, wbc_tasks_on(torch.device("cpu"), cpu_plant, info, model)
+        card_w, cpu_w = outs[dtype]
+        builders = max(rel(v, cpu_w[k]) for k, v in card_w.items()
+                       if not k.startswith(("wbic", "kin_wbc")))
+        errs = {k: rel(v, cpu_w[k]) for k, v in card_w.items() if k.startswith(("wbic", "kin"))}
+        print(f"[fleets] wbc_tasks at B={state.pos.shape[0]}, {dtype}: builders within "
+              f"{builders:.3g} relative of the CPU port; " + ", ".join(
+                  f"{k} {v:.3g}" for k, v in errs.items()) + f"; {ms:.1f} ms on the card")
+        check(builders <= FLEET_TOL, f"wbc_tasks builders {builders} from the CPU port, {dtype}")
+        for k, v in card_w.items():
+            check(bool(torch.isfinite(v).all() and torch.isfinite(cpu_w[k]).all()),
+                  f"wbc_tasks {k} not finite, {dtype}")
+        if dtype == torch.float64:
+            for name in WBC_LISTS:
+                e = errs[f"wbic {name}.tau"]
+                check(e <= WBC_TASK_TOL, f"wbic tau with the {name} list {e}, float64")
+        else:
+            e = errs["wbic independent.tau"]
+            check(e <= WBC_TASK_F32_TOL, f"wbic tau with the independent list {e}, float32")
+    # the CPU port's float32 against its float64, for scale
+    c64, c32 = outs[torch.float64][1], outs[torch.float32][1]
+    print("[fleets] wbic float32 from float64 on the CPU port: " + ", ".join(
+        f"{name} list {rel(c32[f'wbic {name}.tau'].double(), c64[f'wbic {name}.tau']):.3g}"
+        for name in WBC_LISTS) + f" relative on tau (card vs CPU port, float32: tol "
+        f"{WBC_TASK_F32_TOL} on the independent list; float64: tol {WBC_TASK_TOL}) on {card}")
+
+
+def fleets(device, card: str, state) -> None:
+    """Phase 17c: each fleet on the card and again on the CPU port from the
+    same inputs."""
+    import torch
+
+    from quad_periodic_mpc_tpu_torch.control import fsm
+
+    B = FLEET_B
+    t0 = time.perf_counter()
+    card_f, ms = fsm_fleet(device, B, FLEET_FSM_TICKS)
+    cpu_f, cpu_ms = fsm_fleet(torch.device("cpu"), B, FLEET_FSM_TICKS)
+    _fleet_equal("fsm fleet", card_f, cpu_f)
+    estop = int((card_f["mode"][-1] == fsm.ESTOP).sum())
+    print(f"[fleets] {B} FSMs x {FLEET_FSM_TICKS} ticks: {ms:.3f} ms a tick on the card, "
+          f"{cpu_ms:.3f} on the CPU port; state, mode and EDAMP counter equal on every tick; "
+          f"{estop} in ESTOP at the end")
+    check(estop >= B // 8, "fsm fleet: the long faults did not reach ESTOP")
+
+    card_g, card_ph, ms = gait_fleet(device, B, FLEET_GAIT_TICKS)
+    cpu_g, cpu_ph, cpu_ms = gait_fleet(torch.device("cpu"), B, FLEET_GAIT_TICKS)
+    _fleet_equal("gait fleet", card_g, cpu_g)
+    gap = float((card_ph.cpu() - cpu_ph).abs().max())
+    print(f"[fleets] {B} gait schedulers x {FLEET_GAIT_TICKS} ticks at {FLEET_DT} s: {ms:.3f} ms "
+          f"a tick on the card, {cpu_ms:.3f} on the CPU port; contact, touchdown, liftoff and "
+          f"gait equal on every tick, phases within {gap:.3g} (tol {FLEET_TOL})")
+    check(gap <= FLEET_TOL, f"gait fleet: phases {gap} from the CPU port's")
+
+    _sync(device)
+    t1 = time.perf_counter()
+    card_s = small_fleets(device)
+    _sync(device)
+    ms = 1e3 * (time.perf_counter() - t1)
+    cpu_s = small_fleets(torch.device("cpu"))
+    exact = {k: v for k, v in card_s.items() if k.startswith("adaptive")}
+    _fleet_equal("adaptive gait update", exact, cpu_s)
+    worst = 0.0
+    for k, v in card_s.items():
+        if k in exact:
+            continue
+        v, c = v.cpu(), cpu_s[k]
+        both_nan = torch.isnan(v) & torch.isnan(c)
+        check(torch.equal(torch.isnan(v), torch.isnan(c)), f"{k}: NaN pattern differs")
+        worst = max(worst, float(torch.where(both_nan, 0.0, (v - c).abs()).max()))
+    print(f"[fleets] B={B}: adaptive_gait_update equal; poses, playback (plan through a file) "
+          f"and filters within {worst:.3g} of the CPU port (tol {FLEET_TOL}); {ms:.1f} ms on the card")
+    check(worst <= FLEET_TOL, f"poses / playback / filters: {worst} from the CPU port")
+
+    wbc_tasks_fleet(device, card, state)
+    print(f"[fleets] phase 17c took {time.perf_counter() - t0:.1f} s")
+
+
+def slice8(device, card: str) -> dict:
+    """Phase 17: 17a's loop timed here for a few ticks, then 17a in a
+    spawned process, then 17b and 17c here on its final states.  Returns
+    17a's counted launches by kernel and its kernel timings at B =
+    STAND_BATCH."""
+    import multiprocessing
+
+    from quad_periodic_mpc_tpu_torch.control.force_stand import StandTarget
+    from quad_periodic_mpc_tpu_torch.models.floating_base import FBState
+
+    t0 = time.perf_counter()
+    here = stand_tick_ms(device, STAND_BATCH)
+    print(f"[force stand] B={STAND_BATCH}, {STAND_RETIMED_TICKS} ticks in the smoke run's own "
+          f"process, after phases 1-16: {here:.3f} ms a tick")
+    job = {"device": str(device), "card": card, "B": STAND_BATCH, "ticks": STAND_TICKS}
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        res = pool.submit(stand_job, job).result()
+    state = FBState(*(a.to(device) for a in res["fb"]))
+    stand = StandTarget(*(a.to(device) for a in res["target"]))
+    vbl_on_card(device, card, state, stand)
+    fleets(device, card, state)
+    print(f"[fsm] phase 17 took {time.perf_counter() - t0:.1f} s")
+    return res
+
+
 def slice5(device, card: str) -> dict:
     """Phases 11-13.  Returns the launches of their counted runs, by path
     and kernel."""
@@ -2931,6 +3645,10 @@ def main() -> int:
         for name in ("fused_stagewise_solve_srb", "fused_admm_iterations", "fused_model_eval",
                      "fused_wbc", "fused_substeps", "fused_contact_kinematics"):
             check(by_kernel.get(name, 0) > 0, f"{name} was launched no time on the sweeps path")
+        stand = slice8(device, card)
+        for name, n in stand["launches"].items():
+            check(n > 0, f"{name} was launched no time on the force stand path")
+            by_name[name].setdefault("launches_by_path", {})["force stand"] = n
         if "jax" in sys.modules or "quad_periodic_mpc_tpu" in sys.modules:
             raise SmokeFailure("JAX or the JAX package was imported")
     except SmokeFailure as e:

@@ -10,9 +10,9 @@ CMPCLocomotion driver, src/controllers/CMPC/CMPC_Locomotion.cpp).
 - ``foothold_update``: the full _updateFoothold semantics, the terrain
   loop's foothold hook.
 
-The reference's ``adaptive_gait_update`` (early-contact gait reshaping)
-needs ``ops/gait_scheduler.early_contact_handle`` and is not ported yet
-(ROADMAP.md Queue 1, with the gait scheduler).
+- ``adaptive_gait_update``: early-contact gait reshaping through
+  ops/gait_scheduler.early_contact_handle (the Gait_contact behavior,
+  Gait_contact.cpp:108-220, active at CMPC_Locomotion.cpp:652).
 
 The four legs run as one more batch axis: the map gains a singleton leg
 axis, the reference's vmap over legs with the map broadcast.
@@ -23,6 +23,8 @@ from __future__ import annotations
 import torch
 
 from quad_periodic_mpc_tpu_torch.estimation.kf import plane_body_height
+from quad_periodic_mpc_tpu_torch.ops import gait as gait_ops
+from quad_periodic_mpc_tpu_torch.ops.gait_scheduler import early_contact_handle
 from quad_periodic_mpc_tpu_torch.terrain import heightmap as hmap
 
 
@@ -43,6 +45,25 @@ def pitch_reference(
     pitch = pitch_cmd + rpy[..., 1] + est_pitch_plane + vel_term
     standing = torch.as_tensor(standing, device=pitch.device)
     return torch.where(standing, torch.zeros_like(pitch), pitch)
+
+
+def adaptive_gait_update(
+    gait: gait_ops.GaitParams,
+    swing_state: torch.Tensor,
+    phase: torch.Tensor,
+    foot_sensor: torch.Tensor,
+) -> gait_ops.GaitParams:
+    """Early-contact gait reshaping on integer gait params: converts to
+    phase fractions (float32, as the reference), applies
+    earlyContactHandle, converts back with truncation toward zero
+    (Gait.cpp:282-302 semantics on the OffsetDurationGait tables)."""
+    seg = gait.n_segments.to(torch.float32)[..., None]
+    off_f = gait.offsets.to(torch.float32) / seg
+    dur_f = gait.durations.to(torch.float32) / seg
+    off2, dur2 = early_contact_handle(off_f, dur_f, swing_state, phase, foot_sensor,
+                                      gait.n_segments)
+    return gait._replace(offsets=(off2 * seg).to(gait.offsets.dtype),
+                         durations=(dur2 * seg).to(gait.durations.dtype))
 
 
 def _per_leg(hm: hmap.HeightMap) -> hmap.HeightMap:

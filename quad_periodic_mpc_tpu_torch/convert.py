@@ -21,13 +21,14 @@ import numpy as np
 import torch
 
 from quad_periodic_mpc_tpu_torch import config
-from quad_periodic_mpc_tpu_torch.control import mpc, wbc
+from quad_periodic_mpc_tpu_torch.control import balance, fsm, mpc, poses, wbc
 from quad_periodic_mpc_tpu_torch.estimation import container, kf
 from quad_periodic_mpc_tpu_torch.models import floating_base
-from quad_periodic_mpc_tpu_torch.ops import estimator, gait, qp_admm, qp_stagewise
+from quad_periodic_mpc_tpu_torch.ops import estimator, gait, gait_scheduler, qp_admm, qp_stagewise
 from quad_periodic_mpc_tpu_torch.sim import articulated_sim, srb_sim
 from quad_periodic_mpc_tpu_torch.terrain import heightmap as hmap
 from quad_periodic_mpc_tpu_torch.terrain import scenario
+from quad_periodic_mpc_tpu_torch.utils import filters
 
 
 def tensor(a, device="cuda") -> torch.Tensor:
@@ -146,6 +147,45 @@ def stairs_terrain(src, device="cuda") -> scenario.StairsTerrain:
     return scenario.StairsTerrain(
         edge_x=tensor(src.edge_x, device), riser=tensor(src.riser, device),
         tread=float(src.tread), n_steps=int(src.n_steps))
+
+
+def fsm_state(src, device="cuda") -> fsm.FSMState:
+    """The reference's FSMState: int32 states, modes and counter, bool
+    ``transition_done``."""
+    return _named(fsm.FSMState, src, device)
+
+
+def scheduler_params(src, device="cuda") -> gait_scheduler.SchedulerParams:
+    return _named(gait_scheduler.SchedulerParams, src, device)
+
+
+def scheduler_state(src, device="cuda") -> gait_scheduler.SchedulerState:
+    return _named(gait_scheduler.SchedulerState, src, device)
+
+
+def gait_data(src, device="cuda") -> gait_scheduler.GaitData:
+    """The full scheduler's GaitData (int32 gait ids)."""
+    return _named(gait_scheduler.GaitData, src, device)
+
+
+def balance_command(src, device="cuda") -> balance.BalanceCommand:
+    return _named(balance.BalanceCommand, src, device)
+
+
+def pose_command(src, device="cuda") -> poses.PoseCommand:
+    return _named(poses.PoseCommand, src, device)
+
+
+def low_pass_state(src, device="cuda") -> filters.LowPassState:
+    return _named(filters.LowPassState, src, device)
+
+
+def biquad_state(src, device="cuda") -> filters.BiquadState:
+    return _named(filters.BiquadState, src, device)
+
+
+def moving_average_state(src, device="cuda") -> filters.MovingAverageState:
+    return _named(filters.MovingAverageState, src, device)
 
 
 def to_numpy(value):

@@ -4,7 +4,9 @@ discrete disturbance residual, the WBC and the model evaluation's plain
 version), ``spd_inverse_sym`` (the Kalman filter's S), ``spd_solve``,
 ``add_block_diag``, the Cholesky helpers
 (``cholesky_factor``, ``cho_solve``, ``cho_inverse``) and the Newton-Schulz
-inverses (``ns_inverse``, ``ns_inverse_bucket``, ``ns_posspec_inverse``).
+inverses (``ns_inverse``, ``ns_inverse_bucket``, ``ns_posspec_inverse``), and the Riccati solvers
+of the VBL balance controller (``dare_doubling``, ``care``: batched
+``torch.linalg`` solves and inverses, as the reference's are XLA's).
 
 The reference's ``precision=`` arguments choose how many bf16 passes a
 float32 product takes on a TPU's matrix unit.  Here every product is a full
@@ -133,7 +135,13 @@ def add_block_diag(K: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
 
 
 def cholesky_factor(K: torch.Tensor) -> torch.Tensor:
-    return torch.linalg.cholesky(K)
+    """chol(K); an instance whose K is not positive definite gets a factor
+    of NaNs, as the reference's (XLA's) Cholesky gives, and raises nothing:
+    the PDIP's late-path NaN freeze then keeps its iterate.  Nothing reads
+    the status back to the host, so on a card the call does not
+    synchronise."""
+    L, info = torch.linalg.cholesky_ex(K)
+    return torch.where((info != 0)[..., None, None], torch.full_like(L, float("nan")), L)
 
 
 def cho_solve(chol: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
@@ -255,3 +263,34 @@ def ns_inverse_bucket(K: torch.Tensor, X0: torch.Tensor, warm_iters: int = 1,
         # cold_iters rounds in total
         X = _ns_rounds(K, X, max(cold_iters - warm_iters, 0))
     return _ns_rounds(K, X, polish)
+
+
+def dare_doubling(Ad: torch.Tensor, Bd: torch.Tensor, Qd: torch.Tensor, Rd: torch.Tensor,
+                  iters: int = 30) -> torch.Tensor:
+    """Discrete algebraic Riccati solution via the structure-preserving
+    doubling algorithm (quadratic convergence, batched products + solves):
+
+        A_{k+1} = A_k (I + G_k H_k)^{-1} A_k
+        G_{k+1} = G_k + A_k (I + G_k H_k)^{-1} G_k A_k^T
+        H_{k+1} = H_k + A_k^T H_k (I + G_k H_k)^{-1} A_k
+        P = lim H_k
+    """
+    n = Ad.shape[-1]
+    eye = torch.eye(n, dtype=Ad.dtype, device=Ad.device)
+    A, G, H = Ad, Bd @ torch.linalg.solve(Rd, Bd.transpose(-1, -2)), Qd
+    for _ in range(iters):
+        M = torch.linalg.inv(eye + G @ H)
+        MA = M @ A
+        A, G, H = (A @ MA, G + A @ M @ G @ A.transpose(-1, -2),
+                   H + A.transpose(-1, -2) @ H @ MA)
+    return (H + H.transpose(-1, -2)) / 2.0
+
+
+def care(A: torch.Tensor, B: torch.Tensor, Q: torch.Tensor, R: torch.Tensor,
+         dt: float = 1e-3, iters: int = 30) -> torch.Tensor:
+    """Continuous algebraic Riccati equation, batched: an Euler
+    discretisation (Ad = I + dt A, Bd = dt B, Qd = dt Q, Rd = dt R), then
+    DARE doubling (the reference's replacement for the Hamiltonian
+    eigendecomposition of BalanceControllerVBL.cpp:414-455; O(dt) bias)."""
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    return dare_doubling(eye + dt * A, dt * B, dt * Q, dt * R, iters) / 1.0

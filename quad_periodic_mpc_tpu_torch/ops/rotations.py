@@ -4,6 +4,7 @@ dims (counterpart of ``quad_periodic_mpc_tpu/ops/rotations.py``).
 - quat_to_rpy: SolverMPC.cpp:352-361, returned as (roll, pitch, yaw).
 - rpy_to_rotmat: R = Rz(yaw) Ry(pitch) Rx(roll)
   (ConvexMPCLocomotion.cpp:1081-1097).
+- yaw_rotmat: Rz(yaw) alone (the balance controllers' yaw frame).
 """
 
 from __future__ import annotations
@@ -74,6 +75,16 @@ def rpy_to_quat(rpy: torch.Tensor) -> torch.Tensor:
     y = cr * sp * cy + sr * cp * sy
     z = cr * cp * sy - sr * sp * cy
     return torch.stack([w, x, y, z], dim=-1)
+
+
+def yaw_rotmat(yaw: torch.Tensor) -> torch.Tensor:
+    """Pure-yaw rotation Rz(yaw) (RobotState.cpp:40-42 before the R_yaw = R
+    override; the balance controller's yaw frame)."""
+    c, s = torch.cos(yaw), torch.sin(yaw)
+    zero = torch.zeros_like(c)
+    one = torch.ones_like(c)
+    r = torch.stack([c, -s, zero, s, c, zero, zero, zero, one], dim=-1)
+    return r.reshape(yaw.shape + (3, 3))
 
 
 def skew(v: torch.Tensor) -> torch.Tensor:

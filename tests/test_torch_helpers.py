@@ -79,15 +79,21 @@ def test_import_leaves_jax_out():
         " 'footstep_planner']\n"
         "missing = [m for m in terrain if p.__name__ + '.terrain.' + m not in sys.modules]\n"
         "assert not missing and p.__name__ + '.control.cmpc_variant' in sys.modules, missing\n"
+        "slice8 = ['control.fsm', 'control.safety', 'control.poses', 'control.playback',"
+        " 'control.balance', 'control.balance_vbl', 'control.wbc_tasks',"
+        " 'control.force_stand', 'ops.gait_scheduler', 'utils.filters']\n"
+        "missing = [m for m in slice8 if p.__name__ + '.' + m not in sys.modules]\n"
+        "assert not missing, missing\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
         timeout=300)
     assert out.returncode == 0, out.stderr
     # every module was imported, slice 2's (articulated model, WBC, plant,
-    # full stack, the three kernel wrappers) and slice 6's (the terrain tier,
-    # cmpc_variant) included
-    assert int(out.stdout.strip()) >= 48
+    # full stack, the three kernel wrappers), slice 6's (the terrain tier,
+    # cmpc_variant) and slice 8's (the FSM and its controllers, the gait
+    # scheduler, utils.filters) included
+    assert int(out.stdout.strip()) >= 72
 
 
 @pytest.mark.parametrize("name", [
@@ -420,3 +426,74 @@ def test_convert_round_trip():
     np.testing.assert_array_equal(plant_t.x.numpy(), np.asarray(plant.x))
     g = convert.gait_params(j_gait.preset("trotting"), "cpu")
     assert g.offsets.dtype == torch.int32
+
+
+@pytest.mark.parametrize("module,name", [
+    ("control.balance", "BalanceSettings"), ("control.balance_vbl", "VBLSettings")])
+def test_slice8_settings_equal_reference(module, name):
+    """The balance controllers' settings, field by field."""
+    import importlib
+
+    ref = getattr(importlib.import_module(f"quad_periodic_mpc_tpu.{module}"), name)()
+    port = getattr(importlib.import_module(f"quad_periodic_mpc_tpu_torch.{module}"), name)()
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+
+
+@pytest.mark.parametrize("module,names", [
+    ("ops.gait_scheduler", ("GAIT_TABLE", "GAIT_IDS", "_OVERRIDEABLE", "STAND", "CUSTOM",
+                            "TRANSITION_TO_STAND")),
+    ("control.fsm", ("_ALLOWED", "EDAMP_ITERATIONS", "PASSIVE", "STAND_UP", "BALANCE_STAND",
+                     "LOCOMOTION", "RECOVERY_STAND", "LAY_DOWN", "VISION", "BACKFLIP",
+                     "TESTING", "TESTING_CV", "NORMAL", "TRANSITIONING", "ESTOP", "EDAMP")),
+    ("control.poses", ("FOLD_JPOS", "STAND_JPOS", "ROLL_JPOS")),
+    ("control.playback", ("PLAN_COLS", "TAU_OFFSET"))])
+def test_slice8_tables_equal_reference(module, names):
+    """The copied constant tables, entry by entry (each a plain Python
+    value in both packages)."""
+    import importlib
+
+    ref = importlib.import_module(f"quad_periodic_mpc_tpu.{module}")
+    port = importlib.import_module(f"quad_periodic_mpc_tpu_torch.{module}")
+    for name in names:
+        assert getattr(port, name) == getattr(ref, name), name
+
+
+def test_convert_round_trip_slice8():
+    """The slice-8 converters keep every leaf's dtype (int32 FSM states and
+    gait ids, bool transition flags) and values."""
+    from quad_periodic_mpc_tpu.control import balance as j_balance
+    from quad_periodic_mpc_tpu.control import fsm as j_fsm
+    from quad_periodic_mpc_tpu.control import poses as j_poses
+    from quad_periodic_mpc_tpu.ops import gait_scheduler as j_gs
+    from quad_periodic_mpc_tpu.utils import filters as j_filters
+
+    rng = np.random.default_rng(0)
+    f32 = lambda *s: jnp.asarray(rng.normal(size=s).astype(np.float32))
+    prm = j_gs.params("bound")
+    biquad_init, _ = j_filters.make_digital_lp(40.0, 0.002)
+    cases = [
+        (convert.fsm_state, j_fsm.init((5,))._replace(
+            state=jnp.asarray([0, 1, 3, 4, 6], jnp.int32))),
+        (convert.scheduler_params, prm),
+        (convert.scheduler_state, j_gs.init(prm)),
+        (convert.gait_data, j_gs.gait_data_init((3,), gait="pace", dtype=jnp.float32)),
+        (convert.balance_command, j_balance.BalanceCommand(f32(2, 3), f32(2, 3), f32(2, 3),
+                                                           f32(2, 3, 3), f32(2, 3))),
+        (convert.pose_command, j_poses.joint_ramp(jnp.asarray([0.2, 0.7], jnp.float32),
+                                                  f32(2, 4, 3), "fold", 1.0)),
+        (convert.low_pass_state, j_filters.LowPassState(f32(4))),
+        (convert.biquad_state, biquad_init((4,), jnp.float32)),
+        (convert.moving_average_state, j_filters.moving_average_init(5, (4,))),
+    ]
+    for fn, src in cases:
+        got = fn(src, "cpu")
+        assert type(got).__name__ == type(src).__name__
+        back = convert.to_numpy(got)
+        for name, b, a in zip(src._fields, back, src):
+            a = np.asarray(a)
+            assert b.dtype == a.dtype and b.shape == a.shape, (fn.__name__, name)
+            np.testing.assert_array_equal(b, a)
+    fs = convert.fsm_state(j_fsm.init((2,)), "cpu")
+    assert fs.state.dtype == torch.int32 and fs.transition_done.dtype == torch.bool
+    gd = convert.gait_data(j_gs.gait_data_init((2,)), "cpu")
+    assert gd.current_gait.dtype == torch.int32
