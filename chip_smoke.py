@@ -195,6 +195,34 @@ result line) when it fails:
    float64 and in float32 (WBC_LISTS).  17 prints ms per tick, the busy
    share, launches and peak memory.
 
+18. the command-line interface and the operator surfaces (slice 9), each
+   CLI run in this process through ``cli.main`` with its output captured:
+   (a) ``rollout --steps 200 --solver admm --formulation stagewise --backend
+   pallas --solver-iters 30``: exactly 200 fused_stagewise_solve_srb
+   launches, height_final within 0.03 of 0.29 and vx_mean within 0.03 of 0.3;
+   (b) ``python -m quad_periodic_mpc_tpu_torch rollout`` with those flags,
+   ``--disturbance`` and 20 steps, a subprocess with no ``--device``: exit 0
+   and JSON equal to the same run in this process, whose every numeric field
+   lies within 1e-3 of the CPU port's (``--device cpu``); (c) ``live --steps
+   40 --chunk 10`` with the tune file rewritten after the second row and
+   telemetry to a UDP socket bound on port 0: 4 rows, tune_seq 1, 1, 2, 2,
+   alpha and swing_height echo the file, the rollout handed the same tensors
+   in every chunk, one datagram per row equal to it, 40 fused_stagewise_solve
+   launches; (d) ``sweep --mpc-steps 20 --phase-offsets 4 --backend pallas``
+   on the card and on the CPU port: 20 fused_admm_iterations launches, the
+   same instances, best_instance under the tie rule, the mean and p50 / p95
+   within atol 5e-4, rtol 1e-3; (e) ``parity --horizon 10 --problems 5``
+   in float32, each row printed beside JAX's (PARITY_REF), the worst force
+   gap within 1e-2 N of JAX's; (f) tests/test_golden_qpoases.py's three
+   scenes in float32 on the card through fused_admm_iterations (ADMM-400),
+   fused_stagewise_solve (ADMM-400) and the PDIP-40, each against the
+   committed qpOASES library (tools/golden/libqpoases_golden.so) at that
+   test's gates, or where float32 misses one, no farther than 4/3 of JAX's
+   own float32 gap (GOLDEN_XLA_GAP); (g) the native runtime built with g++
+   into build/native/: the ring, UDP on ports from a bind-to-0 probe, the
+   four safety functions, and the 500 Hz periodic loop for 0.25 s (its
+   iterations and jitter, host figures).  18 prints each part's seconds.
+
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 object per kernel with its times and bound, and
 {"ok": true, "device": {...}}.
@@ -414,6 +442,51 @@ VBL_TOL = {"F": 1e-3, "P": 1e-4}
 FLEET_B, FLEET_FSM_TICKS, FLEET_GAIT_TICKS, FLEET_DT = 2048, 1200, 1000, 0.002
 FLEET_TOL, WBC_TASK_TOL, WBC_TASK_F32_TOL = 1e-6, 1e-4, 1e-3
 WBC_LISTS = {"reference": ("ryrz", "jpos"), "independent": ("ryrz", "roll", "local_pos")}
+# slice 9: the CLI and the operator surfaces, phase 18.  18b: the card's
+# rollout against the CPU port's on the same flags, every numeric field;
+# 18c: live's rows against the CPU port's, the state fields LIVE_STATE
+# (float32; the kernels and the plain versions sum in another order; the
+# H100 gave 7.75e-7 on 18b's 20 periods)
+CLI_STEPS, CLI_SHORT_STEPS, CLI_CPU_TOL = 200, 20, 1e-5
+LIVE_STATE = ("t_sim", "vx", "vx_mean_chunk", "height", "roll", "pitch", "est_freq", "est_amp")
+CLI_ROLLOUT_FLAGS = ["--solver", "admm", "--formulation", "stagewise", "--backend", "pallas",
+                     "--solver-iters", "30"]
+# 18a: the JAX CLI test's gate on the final height, the verify skill's on vx
+CLI_HEIGHT, CLI_HEIGHT_TOL, CLI_VX, CLI_VX_TOL = 0.29, 0.03, 0.3, 0.03
+# 18e: each seed's ADMM-200-vs-PDIP-40 force gap within PARITY_TOL N of
+# JAX's float32 figure (tools/slice9_reference.py, JAX on the CPU, 64-bit
+# mode off); on the H100 the rows lay 2.9e-6 to 2.5e-4 N from JAX's (the
+# ADMM stops 200 iterations short of its fixed point, so float32 sums in
+# another order move it by up to a fifth of the gap itself)
+PARITY_TOL = 3e-4
+# 18f: tests/test_golden_qpoases.py's gates, |x - x_qpOASES| <= atol + rtol
+# |x_qpOASES| (set in float64); where float32 misses one, the largest gap
+# may be no more than 4/3 of JAX's own float32 XLA gap on the same QP
+GOLDEN_ATOL = {"admm": 2e-3, "pdip": 2e-3, "stagewise": 3e-3}
+GOLDEN_RTOL = 1e-3
+# JAX's figures, float32 on the CPU (tools/slice9_reference.py): parity's rows
+# for seeds 0-4 (ADMM-200 against PDIP-40, h = 10), and per golden scene
+# (fixtures.GOLDEN_SCENES) the largest |x - x_qpOASES| of ADMM-400, PDIP-40
+# and the stagewise ADMM-400
+PARITY_REF = {"worst_force_diff_N": 0.002143383026123047, "rows": [
+    {"seed": 0, "admm_vs_pdip_max": 0.00140380859375, "primal": 4.0900813473854214e-05,
+     "dual": 1.6391277313232422e-07},
+    {"seed": 1, "admm_vs_pdip_max": 0.0010833740234375, "primal": 2.0242499886080623e-05,
+     "dual": 1.1920928955078125e-07},
+    {"seed": 2, "admm_vs_pdip_max": 0.0007015466690063477, "primal": 1.4821156582911499e-05,
+     "dual": 8.568167686462402e-08},
+    {"seed": 3, "admm_vs_pdip_max": 0.0011034011840820312, "primal": 4.576464561978355e-05,
+     "dual": 2.4959444999694824e-07},
+    {"seed": 4, "admm_vs_pdip_max": 0.002143383026123047, "primal": 4.664276639232412e-05,
+     "dual": 2.5331974029541016e-07}]}
+GOLDEN_XLA_GAP = (
+    {"admm": 0.0008169878998245395, "pdip": 0.0002953471564715038,
+     "stagewise": 0.00044297882151056456},
+    {"admm": 0.0006463931260611844, "pdip": 9.816277617513691e-05,
+     "stagewise": 0.00019876828635290167},
+    {"admm": 0.003796395411427511, "pdip": 0.0009896547054033533,
+     "stagewise": 0.0005499794449406181},
+)
 QUEUE_SLEEP_CYCLES = 200_000_000     # ~0.1 s at the H100's clock: longer than 21 calls' issue
 # H100 SXM: HBM3 rate and float32 (non-tensor-core) peak, NVIDIA data sheet
 HBM_BYTES_PER_S = 3.35e12
@@ -829,11 +902,13 @@ def compare_solve_kernels(device, card: str) -> dict:
     # ---- fused_stagewise_solve ----
     name = "fused_stagewise_solve"
     worst = 0.0
-    # the last case is the predictive path's shape (timed); the one before it
-    # the tunable period's (slice 5: shared c)
+    # the last case is the predictive path's shape (timed); the two before it
+    # the tunable period's (slice 5: shared c) and cli live's (slice 9: the
+    # same layout at B = 1)
     for B, h, per_step_c, dense_ad, seed in ((37, 48, False, False, 201),
                                              (37, HORIZON, True, True, 202),
                                              (BATCH, HORIZON, False, False, 203),
+                                             (1, HORIZON, False, False, 204),
                                              (BATCH, HORIZON, True, False, 200)):
         args, kw, stats, err = solve_case(
             name, SK.fused_stagewise_solve, SK.fused_stagewise_solve_reference, TOL,
@@ -3563,6 +3638,356 @@ def slice8(device, card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# slice 9: the CLI and the operator surfaces (phase 18)
+# ---------------------------------------------------------------------------
+
+class _RetuneAfterRows:
+    """stdout of an in-process ``cli live``: collects its rows and, once
+    ``after`` rows are complete, rewrites the tune file (with an mtime of
+    its own), which the loop polls before its next chunk."""
+
+    def __init__(self, path: Path, values: dict, after: int):
+        import io
+
+        self.buf, self.path, self.values, self.after, self.done = io.StringIO(), path, values, \
+            after, False
+
+    def write(self, s: str) -> int:
+        import os
+
+        n = self.buf.write(s)
+        if not self.done and self.buf.getvalue().count("\n") >= self.after:
+            self.path.write_text(json.dumps(self.values))
+            st = self.path.stat()
+            os.utime(self.path, (st.st_atime, st.st_mtime + 10.0))
+            self.done = True
+        return n
+
+    def flush(self) -> None:
+        pass
+
+    def getvalue(self) -> str:
+        return self.buf.getvalue()
+
+
+def cli_run(argv, out=None):
+    """cli.main(argv) in this process with its standard output captured:
+    (the parsed JSON, or the JSON lines as a list, and the wall seconds).
+    The counts and the card are those of this process."""
+    import contextlib
+    import io
+
+    from quad_periodic_mpc_tpu_torch import cli
+
+    out = out if out is not None else io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli.main(argv)
+    wall = time.perf_counter() - t0
+    text = out.getvalue()
+    try:
+        return json.loads(text), wall
+    except json.JSONDecodeError:
+        return [json.loads(line) for line in text.splitlines()], wall
+
+
+def _numeric_gap(a: dict, b: dict) -> float:
+    """The largest |a - b| over the numeric fields (lists flattened); the
+    other fields must be equal."""
+    gap = 0.0
+    for k, v in b.items():
+        if isinstance(v, (int, float)) and not isinstance(v, bool):
+            gap = max(gap, abs(a[k] - v))
+        elif isinstance(v, list):
+            gap = max([gap, *(abs(x - y) for x, y in zip(a[k], v))])
+        else:
+            check(a[k] == v, f"field {k}: {a[k]!r} against {v!r}")
+    return gap
+
+
+def _add(total: dict, launched: dict) -> None:
+    for k, v in launched.items():
+        total[k] = total.get(k, 0) + v
+
+
+def cli_rollouts(device, card: str, counts: dict) -> None:
+    """18a and 18b."""
+    import os
+
+    reset_all_counts()
+    out, wall = cli_run(["rollout", "--steps", str(CLI_STEPS), *CLI_ROLLOUT_FLAGS])
+    launched = {k: v for k, v in all_launch_counts().items() if v}
+    _add(counts, launched)
+    print(f"[cli rollout] {CLI_STEPS} periods, stagewise ADMM-30 in the fused-build kernel: "
+          f"{wall:.2f} s, {1e3 * wall / CLI_STEPS:.2f} ms a period, launches {launched}, "
+          f"height_final {out['height_final']:.5f}, vx_mean {out['vx_mean']:.5f}, vx_rms_err "
+          f"{out['vx_rms_err']:.5f} on {card}")
+    check(launched == {"fused_stagewise_solve_srb": CLI_STEPS},
+          f"18a: launches {launched}, expected {CLI_STEPS} of fused_stagewise_solve_srb alone")
+    check(abs(out["height_final"] - CLI_HEIGHT) < CLI_HEIGHT_TOL,
+          f"18a: height_final {out['height_final']}")
+    check(abs(out["vx_mean"] - CLI_VX) < CLI_VX_TOL, f"18a: vx_mean {out['vx_mean']}")
+
+    flags = ["rollout", "--steps", str(CLI_SHORT_STEPS), *CLI_ROLLOUT_FLAGS, "--disturbance"]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "quad_periodic_mpc_tpu_torch", *flags],
+                          cwd=REPO, capture_output=True, text=True, timeout=300,
+                          env={**os.environ, "PYTHONPATH": str(REPO)})
+    sub_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"18b: python -m quad_periodic_mpc_tpu_torch exited "
+          f"{proc.returncode}: {proc.stderr[-2000:]}")
+    sub = json.loads(proc.stdout)
+    reset_all_counts()
+    here, here_s = cli_run(flags)
+    _add(counts, {k: v for k, v in all_launch_counts().items() if v})
+    on_cpu, cpu_s = cli_run(flags + ["--device", "cpu"])
+    gap = _numeric_gap(here, on_cpu)
+    print(f"[cli rollout] python -m quad_periodic_mpc_tpu_torch {' '.join(flags[:3])} ... "
+          f"--disturbance (no --device): exit 0 in {sub_s:.2f} s, its JSON "
+          f"{'equal to' if sub == here else 'NOT equal to'} this process's card run "
+          f"({here_s:.2f} s); the CPU port's ({cpu_s:.2f} s) largest gap {gap:.3g} on {card}")
+    check(sub == here, f"18b: the subprocess's JSON {sub} differs from the card run's {here}")
+    check(gap <= CLI_CPU_TOL, f"18b: card vs CPU port gap {gap}")
+
+
+def cli_live(device, card: str, counts: dict) -> None:
+    """18c."""
+    import socket
+
+    from quad_periodic_mpc_tpu_torch.control import loop as L
+
+    tmp = REPO / "build" / "cli"
+    tmp.mkdir(parents=True, exist_ok=True)
+    tune = tmp / "tune.json"
+    retune = {"alpha": 3e-5, "swing_height": 0.12}
+    argv = ["live", "--steps", "40", "--chunk", "10", "--tune-file", str(tune)]
+
+    def live(extra):
+        tune.write_text(json.dumps({"alpha": 2e-5}))
+        return cli_run(argv + extra, out=_RetuneAfterRows(tune, retune, after=2))
+
+    rx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    rx.bind(("127.0.0.1", 0))
+    ptrs = []
+    real = L.rollout
+
+    def recording(*args, tunable=None, **kw):
+        ptrs.append(tuple(t.data_ptr() for t in tunable))
+        return real(*args, tunable=tunable, **kw)
+
+    L.rollout = recording
+    try:
+        reset_all_counts()
+        rows, wall = live(["--telemetry-udp", f"127.0.0.1:{rx.getsockname()[1]}"])
+        launched = {k: v for k, v in all_launch_counts().items() if v}
+        rx.settimeout(5.0)
+        grams = [json.loads(rx.recv(65536)) for _ in rows]
+        rx.setblocking(False)
+        try:
+            extra = rx.recv(65536)
+        except BlockingIOError:
+            extra = None
+    finally:
+        L.rollout = real
+        rx.close()
+    _add(counts, launched)
+    cpu_rows, cpu_s = live(["--device", "cpu"])
+    check(len(cpu_rows) == len(rows), f"18c: {len(cpu_rows)} rows on the CPU port")
+    gaps = {k: max(abs(r[k] - c[k]) for r, c in zip(rows, cpu_rows)) for k in LIVE_STATE}
+    gap = max(gaps.values())
+    print(f"[cli live] 40 periods in chunks of 10: {wall:.2f} s, chunks "
+          f"{[r['chunk_wall_ms'] for r in rows]} ms, tune_seq {[r['tune_seq'] for r in rows]}, "
+          f"alpha {[r['alpha'] for r in rows]}, swing_height {[r['swing_height'] for r in rows]}, "
+          f"{len(grams)} datagrams, launches {launched}; the CPU port's rows ({cpu_s:.2f} s) "
+          f"largest gap {gap:.3g} (by field {', '.join(f'{k} {v:.3g}' for k, v in gaps.items())})"
+          f" on {card}")
+    check(len(rows) == 4, f"18c: {len(rows)} rows")
+    for tag, rs in (("card", rows), ("CPU port", cpu_rows)):
+        check([r["tune_seq"] for r in rs] == [1, 1, 2, 2], f"18c: tune_seq on the {tag}")
+        check(all(abs(r["alpha"] - (2e-5 if i < 2 else 3e-5)) < 1e-10 for i, r in enumerate(rs))
+              and abs(rs[3]["swing_height"] - 0.12) < 1e-6, f"18c: the retuned values, {tag}")
+        check([r["mpc_steps"] for r in rs] == [10, 20, 30, 40], f"18c: mpc_steps on the {tag}")
+    check(len(ptrs) == 4 and len(set(ptrs)) == 1, "18c: the tunable's tensors moved")
+    check(grams == rows and extra is None, "18c: the datagrams differ from the rows")
+    check(launched == {"fused_stagewise_solve": 40},
+          f"18c: launches {launched}, expected 40 of fused_stagewise_solve alone")
+    check(gap <= CLI_CPU_TOL, f"18c: card vs CPU port gap {gaps}")
+
+
+def cli_sweep(device, card: str, counts: dict) -> None:
+    """18d."""
+    from quad_periodic_mpc_tpu_torch.parallel import dryrun
+    from quad_periodic_mpc_tpu_torch.parallel import sweep as SW
+
+    flags = ["sweep", "--mpc-steps", "20", "--phase-offsets", "4", "--backend", "pallas"]
+    results = []
+    real = SW.run_sweep
+
+    def recording(*args, **kw):
+        results.append(real(*args, **kw))
+        return results[-1]
+
+    SW.run_sweep = recording
+    try:
+        reset_all_counts()
+        card_out, card_s = cli_run(flags)
+        launched = {k: v for k, v in all_launch_counts().items() if v}
+        cpu_out, cpu_s = cli_run(flags + ["--device", "cpu"])
+    finally:
+        SW.run_sweep = real
+    _add(counts, launched)
+    on_card, on_cpu = results
+    print(f"[cli sweep] {card_out['instances']} instances x 20 periods, condensed ADMM-100 in "
+          f"fused_admm_iterations: {card_s:.2f} s ({cpu_s:.2f} s on the CPU port); card "
+          f"{card_out}, CPU {cpu_out}, launches {launched} on {card}")
+    check(card_out["instances"] == cpu_out["instances"], "18d: instances")
+    check(SW.argmin_agrees(on_cpu.vx_rms, cpu_out["best_instance"], card_out["best_instance"],
+                           dryrun.ATOL, dryrun.RTOL), "18d: best_instance under the tie rule")
+    for k in ("mean_vx_rms", "vx_rms_p50", "vx_rms_p95"):
+        check(abs(card_out[k] - cpu_out[k]) <= dryrun.ATOL + dryrun.RTOL * abs(cpu_out[k]),
+              f"18d: {k} {card_out[k]} against {cpu_out[k]}")
+    check(launched == {"fused_admm_iterations": 20},
+          f"18d: launches {launched}, expected 20 of fused_admm_iterations alone")
+
+
+def cli_parity(device, card: str) -> None:
+    """18e."""
+    out, wall = cli_run(["parity", "--horizon", "10", "--problems", "5"])
+    for row, ref in zip(out["rows"], PARITY_REF["rows"]):
+        print(f"[cli parity] seed {row['seed']}: admm_vs_pdip_max {row['admm_vs_pdip_max']:.6g} "
+              f"(JAX {ref['admm_vs_pdip_max']:.6g}), primal {row['primal']:.3g} (JAX "
+              f"{ref['primal']:.3g}), dual {row['dual']:.3g} (JAX {ref['dual']:.3g})")
+    check(len(out["rows"]) == 5, f"18e: {len(out['rows'])} rows")
+    gaps = [abs(r["admm_vs_pdip_max"] - ref["admm_vs_pdip_max"])
+            for r, ref in zip(out["rows"], PARITY_REF["rows"])]
+    worst = abs(out["worst_force_diff_N"] - PARITY_REF["worst_force_diff_N"])
+    print(f"[cli parity] worst_force_diff_N {out['worst_force_diff_N']:.6g} N against JAX's "
+          f"{PARITY_REF['worst_force_diff_N']:.6g} (gap {worst:.3g} N); by seed "
+          f"{[float(f'{g:.3g}') for g in gaps]} N (tol {PARITY_TOL}), {wall:.2f} s on {card}")
+    check(max(gaps) <= PARITY_TOL and worst <= PARITY_TOL, f"18e: parity gaps {gaps} N")
+
+
+def golden_on_card(device, card: str, counts: dict) -> None:
+    """18f: the three golden scenes in float32 on the card, through
+    fused_admm_iterations, fused_stagewise_solve and the PDIP, against the
+    reference's qpOASES."""
+    import numpy as np
+    import torch
+
+    from quad_periodic_mpc_tpu_torch.config import ADMMConfig, PDIPConfig
+    from quad_periodic_mpc_tpu_torch.ops import qp_admm, qp_pdip, qp_stagewise
+    from quad_periodic_mpc_tpu_torch.testing import fixtures, golden
+
+    t0 = time.perf_counter()
+    golden.load()
+    solvers = {
+        "admm": lambda qp, sw: qp_admm.solve(qp, ADMMConfig(iterations=400, backend="pallas"))[0],
+        "pdip": lambda qp, sw: qp_pdip.solve(qp, PDIPConfig(iterations=40))[0],
+        "stagewise": lambda qp, sw: qp_stagewise.solve(
+            sw, ADMMConfig(iterations=400, backend="pallas"))[0],
+    }
+    reset_all_counts()
+    for sc, ref in zip(fixtures.GOLDEN_SCENES, GOLDEN_XLA_GAP):
+        qp, _, _ = fixtures.golden_scene(**sc, dtype=torch.float32, device=device)
+        sw = fixtures.golden_stagewise_scene(**sc, dtype=torch.float32, device=device)
+        x_gold, status, _ = golden.solve(qp.P, qp.q, golden.dense_constraint_matrix(
+            qp.F, sc["horizon"]), qp.l, qp.u, reduced=True)
+        check(status == 0, f"18f: qpOASES status {status}")
+        for name, solve in solvers.items():
+            x = solve(qp, sw).double().cpu().numpy().reshape(-1)
+            err = np.abs(x - x_gold)
+            excess = float((err - (GOLDEN_ATOL[name] + GOLDEN_RTOL * np.abs(x_gold))).max())
+            jax_gap = ref[name]
+            ok = excess <= 0.0 or float(err.max()) <= jax_gap * 4.0 / 3.0
+            print(f"[golden] h={sc['horizon']} seed {sc['seed']} {name}: max |x - qpOASES| "
+                  f"{float(err.max()):.4g} (JAX float32 XLA {jax_gap:.4g}), over the "
+                  f"golden gate by {excess:.3g}{'' if excess <= 0 else ' (MISSED, held to JAX)'}")
+            check(ok, f"18f: {name} at h={sc['horizon']} seed {sc['seed']}: {float(err.max())}")
+    launched = {k: v for k, v in all_launch_counts().items() if v}
+    _add(counts, launched)
+    print(f"[golden] float32 on the card, 3 scenes, {time.perf_counter() - t0:.2f} s, "
+          f"launches {launched} on {card}")
+    check(launched == {"fused_admm_iterations": 3, "fused_stagewise_solve": 3},
+          f"18f: launches {launched}")
+
+
+def native_runtime(card: str) -> None:
+    """18g: the native runtime built with g++ on this machine; host figures."""
+    import os
+    import socket
+
+    import numpy as np
+
+    from quad_periodic_mpc_tpu_torch.runtime import native_bridge as nb
+
+    t0 = time.perf_counter()
+    lib = nb.build()
+    build_s = time.perf_counter() - t0
+    ring = nb.StateRing(f"/qpm_smoke_ring_{os.getpid()}", frame_bytes=nb.STATE_BYTES, slots=4)
+    try:
+        frames = [bytes([i]) * nb.STATE_BYTES for i in range(10)]
+        seqs = [ring.write(f) for f in frames]
+        seq, data = ring.read_latest()
+    finally:
+        ring.close(unlink=True)
+    check(seqs == list(range(1, 11)) and seq == 10 and data == frames[-1], "18g: the ring")
+    probes = [socket.socket(socket.AF_INET, socket.SOCK_DGRAM) for _ in range(2)]
+    for s in probes:
+        s.bind(("127.0.0.1", 0))
+    pa, pb = (s.getsockname()[1] for s in probes)
+    for s in probes:
+        s.close()
+    a = nb.UdpBridge(pa, "127.0.0.1", pb)
+    b = nb.UdpBridge(pb, "127.0.0.1", pa)
+    try:
+        sent = a.send(b"x" * nb.CMD_BYTES)
+        a.send(b"newest")
+        time.sleep(0.01)
+        got = b.recv_latest(nb.CMD_BYTES)
+    finally:
+        a.close()
+        b.close()
+    check(sent == nb.CMD_BYTES and got == b"newest", "18g: UDP loopback")
+    tau, n = nb.clamp_torques(np.array([20.0, -20.0, 30.0] + [1.0] * 9))
+    check(n == 3 and list(tau[:3]) == [17.0, -17.0, 26.0], "18g: clamp_torques")
+    tau, applied = nb.power_protect(np.full(12, 10.0), np.full(12, 2.0), 120.0)
+    check(applied and abs(float(np.sum(tau * 2.0)) - 120.0) < 1e-9, "18g: power_protect")
+    q, n = nb.position_limit(np.array([5.0, 5.0, -3.0] + [0.0, 0.5, -1.5] * 3))
+    check(n == 3 and q[1] == 4.19 and q[2] == -2.70, "18g: position_limit")
+    q, n = nb.position_protect(np.full(12, 0.7), np.full(12, 0.5))
+    check(n == 12 and abs(q[0] - 0.587) < 1e-12, "18g: position_protect")
+    loop = nb.PeriodicLoop(2_000_000)
+    loop.start()
+    time.sleep(0.25)
+    loop.stop()
+    iters, overruns, jitter = loop.iterations, loop.overruns, loop.max_jitter_ns
+    loop.destroy()
+    print(f"[native] g++ build {build_s:.2f} s ({lib.name}); ring, UDP and the four safety "
+          f"functions pass; the 500 Hz PeriodicLoop for 0.25 s: {iters} iterations, {overruns} "
+          f"overruns, max jitter {jitter / 1e3:.1f} us (host figures, on the machine of {card})")
+    check(80 <= iters <= 170, f"18g: {iters} loop iterations in 0.25 s")
+
+
+def slice9(device, card: str) -> dict:
+    """Phase 18.  Returns the launches by kernel of the CLI's runs (18a-e)
+    and of the golden check (18f)."""
+    t0 = time.perf_counter()
+    cli, gold = {}, {}
+    times = {}
+    for tag, fn in (("18a-b", lambda: cli_rollouts(device, card, cli)),
+                    ("18c", lambda: cli_live(device, card, cli)),
+                    ("18d", lambda: cli_sweep(device, card, cli)),
+                    ("18e", lambda: cli_parity(device, card)),
+                    ("18f", lambda: golden_on_card(device, card, gold)),
+                    ("18g", lambda: native_runtime(card))):
+        t = time.perf_counter()
+        fn()
+        times[tag] = round(time.perf_counter() - t, 2)
+    print(f"[cli] phase 18 took {time.perf_counter() - t0:.1f} s (by part, s: {times}) on {card}")
+    return {"cli": cli, "golden": gold}
+
+
 def slice5(device, card: str) -> dict:
     """Phases 11-13.  Returns the launches of their counted runs, by path
     and kernel."""
@@ -3649,6 +4074,15 @@ def main() -> int:
         for name, n in stand["launches"].items():
             check(n > 0, f"{name} was launched no time on the force stand path")
             by_name[name].setdefault("launches_by_path", {})["force stand"] = n
+        surfaces = slice9(device, card)
+        for path, names in (("cli", ("fused_stagewise_solve_srb", "fused_stagewise_solve",
+                                     "fused_admm_iterations")),
+                            ("golden", ("fused_stagewise_solve", "fused_admm_iterations"))):
+            for name in names:
+                check(surfaces[path].get(name, 0) > 0,
+                      f"{name} was launched no time on the {path} path")
+            for name, n in surfaces[path].items():
+                by_name[name].setdefault("launches_by_path", {})[path] = n
         if "jax" in sys.modules or "quad_periodic_mpc_tpu" in sys.modules:
             raise SmokeFailure("JAX or the JAX package was imported")
     except SmokeFailure as e:

@@ -97,3 +97,16 @@ def torque_output(cmd: LegCommand, data: LegData, model: RobotModel,
         tau = tau * torch.tensor([1.0, -1.0, -1.0], dtype=tau.dtype, device=tau.device)
     return tau
 
+
+
+def stance_command_from_mpc(
+    f_ff_world: torch.Tensor,
+    R_body: torch.Tensor,
+    kd_joint: torch.Tensor,
+    batch: tuple = (),
+) -> dict:
+    """The stance-leg command fields the locomotion driver writes when the
+    WBC is off (ConvexMPCLocomotion.cpp:428-437): feedforward force and
+    joint damping.  ``R_body`` and ``batch`` are accepted as the reference's
+    helper accepts them, and unused."""
+    return dict(force_ff=f_ff_world, kd_joint=kd_joint)

@@ -35,6 +35,15 @@ def sxform(R: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     return X
 
 
+def sxform_inv_T(X: torch.Tensor) -> torch.Tensor:
+    """Force transform X^{-T} of a motion transform X."""
+    out = torch.zeros_like(X)
+    out[..., 0:3, 0:3] = X[..., 0:3, 0:3]
+    out[..., 3:6, 3:6] = X[..., 0:3, 0:3]
+    out[..., 0:3, 3:6] = X[..., 3:6, 0:3]          # -R [r]x
+    return out
+
+
 def motion_cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """crm(a) @ b (spatial.h:81-97)."""
     w, v = a[..., 0:3], a[..., 3:6]

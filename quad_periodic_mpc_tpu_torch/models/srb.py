@@ -24,6 +24,12 @@ NU = 12
 NW = 6
 
 
+def world_inertia(R: torch.Tensor, I_body_diag: torch.Tensor) -> torch.Tensor:
+    """I_world = R diag(I_body) R^T (SolverMPC.cpp:593)."""
+    I_body = I_body_diag[..., :, None] * torch.eye(3, dtype=R.dtype, device=R.device)
+    return R @ I_body @ R.transpose(-1, -2)
+
+
 def ct_dynamics(
     R: torch.Tensor,
     r_feet: torch.Tensor,

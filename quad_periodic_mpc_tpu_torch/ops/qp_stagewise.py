@@ -16,9 +16,10 @@ quadratics and gains once per solve with a parallel-in-time Riccati
 (``lqr_apply_packed``).  The scan path is written in batch-leading layout,
 ``torch.matmul`` on (..., 13, 13) blocks; the reference's lane-major
 packing is a TPU layout and is not carried over (its names are).
-``lqr_solve`` is the sequential oracle the tests use.  The reference's
-batched-matmul cross-check copies (``lqr_factorize``, ``lqr_apply``,
-``solve_blocked``) are not ported yet (ROADMAP.md Queue 1).
+``lqr_solve`` is the sequential oracle the tests use; ``solve_blocked``
+(with ``lqr_factorize`` / ``lqr_apply``) is the reference's cross-check
+copy of the scan path, the same ADMM with the scans' transition products
+formed anew in every iteration.
 """
 
 from __future__ import annotations
@@ -121,6 +122,20 @@ def lqr_solve(
     return torch.stack(U, dim=-2)
 
 
+class LQRGains(NamedTuple):
+    """Iteration-invariant LQR factorization (see ``lqr_factorize``):
+    blocks (..., h, r, c), vectors (..., h, r)."""
+
+    K: torch.Tensor       # (..., h, 12, 13) feedback gains
+    Minv: torch.Tensor    # (..., h, 12, 12) (R_eff + B'P_{k+1}B)^{-1}
+    G: torch.Tensor       # (..., h, 13, 12) Qux' M^{-1}
+    Ft: torch.Tensor      # (..., h, 13, 13) backward linear map A' - G B'
+    Acl: torch.Tensor     # (..., h, 13, 13) closed-loop A - B K
+    Pc: torch.Tensor      # (..., h, 13) P_{k+1} c_k
+    q_stage: torch.Tensor  # (..., h, 13) stage linear cost (masked -Q xref)
+    p_T: torch.Tensor     # (..., 13) terminal linear cost
+
+
 class LQRGainsPacked(NamedTuple):
     """Iteration-invariant LQR factorization: blocks (B, h, r, c), vectors
     (B, h, r).  PF_back / PF_fwd / T_F cache the recursive-doubling
@@ -212,18 +227,9 @@ def _riccati_suffix_scan(A, C, J, ns_it: int):
     return A, C, J
 
 
-def lqr_factorize_packed(
-    Ad: torch.Tensor,      # (B, 13, 13)
-    Bd: torch.Tensor,      # (B, 13, 12)
-    c: torch.Tensor,       # (B, 1 or h, 13) per-step affine term
-    x_ref: torch.Tensor,   # (B, h, 13)
-    Q: torch.Tensor,       # (13,)
-    R: torch.Tensor,       # (12,)
-    R_eff_diag_extra: torch.Tensor,   # (3, 3)
-) -> LQRGainsPacked:
-    """Parallel-in-time Riccati: the value quadratics P_k and all gain
-    matrices, once per solve, by a scan over Sarkka-style conditional value
-    elements (Temporal Parallelization of LQR)."""
+def _factorize(Ad, Bd, c, x_ref, Q, R, R_eff_diag_extra) -> LQRGains:
+    """The gains of ``LQRGains`` over a flat batch: Ad (B, 13, 13), Bd
+    (B, 13, 12), c (B, 1 or h, 13), x_ref (B, h, 13)."""
     Bn, h = x_ref.shape[0], x_ref.shape[1]
     dtype, device = x_ref.dtype, x_ref.device
     ns_it = ns_combine_iters(h)
@@ -249,17 +255,34 @@ def lqr_factorize_packed(
     Qux = BtP @ Ah
     K = Minv @ Qux
     G = _tr(Qux) @ Minv                                        # (B, h, 13, 12)
-    Ft = _tr(Ah) - G @ _tr(Bh)
-    Acl = Ah - Bh @ K
-    Pc = _mv(P, c)
-
     q_stage = torch.cat(
         [torch.zeros(Bn, 1, NX, dtype=dtype, device=device), q_lin[:, :h - 1]], dim=1)
-    PF_back, _ = _doubling_products(torch.cat([Ft, zblk], dim=1), reverse=True)
-    PF_fwd, T_F = _doubling_products(Acl, reverse=False)
-    return LQRGainsPacked(
-        K=K, Minv=Minv, G=G, Ft=Ft, Acl=Acl, Pc=Pc, q_stage=q_stage,
-        p_T=q_lin[:, h - 1], PF_back=PF_back, PF_fwd=PF_fwd, T_F=T_F)
+    return LQRGains(
+        K=K, Minv=Minv, G=G, Ft=_tr(Ah) - G @ _tr(Bh), Acl=Ah - Bh @ K, Pc=_mv(P, c),
+        q_stage=q_stage, p_T=q_lin[:, h - 1])
+
+
+def _with_products(gains: LQRGains) -> LQRGainsPacked:
+    """The gains with the doubling scans' transition products."""
+    zblk = torch.zeros_like(gains.Ft[:, :1])
+    PF_back, _ = _doubling_products(torch.cat([gains.Ft, zblk], dim=1), reverse=True)
+    PF_fwd, T_F = _doubling_products(gains.Acl, reverse=False)
+    return LQRGainsPacked(*gains, PF_back=PF_back, PF_fwd=PF_fwd, T_F=T_F)
+
+
+def lqr_factorize_packed(
+    Ad: torch.Tensor,      # (B, 13, 13)
+    Bd: torch.Tensor,      # (B, 13, 12)
+    c: torch.Tensor,       # (B, 1 or h, 13) per-step affine term
+    x_ref: torch.Tensor,   # (B, h, 13)
+    Q: torch.Tensor,       # (13,)
+    R: torch.Tensor,       # (12,)
+    R_eff_diag_extra: torch.Tensor,   # (3, 3)
+) -> LQRGainsPacked:
+    """Parallel-in-time Riccati: the value quadratics P_k and all gain
+    matrices, once per solve, by a scan over Sarkka-style conditional value
+    elements (Temporal Parallelization of LQR)."""
+    return _with_products(_factorize(Ad, Bd, c, x_ref, Q, R, R_eff_diag_extra))
 
 
 def lqr_apply_packed(
@@ -284,6 +307,43 @@ def lqr_apply_packed(
     x_later = _mv(gains.T_F, x0[:, None]) + T_s                # x_{k+1}
     x = torch.cat([x0[:, None], x_later[:, :h - 1]], dim=1)
     return -_mv(gains.K, x) - kff
+
+
+def _flat_problem(prob: StagewiseProblem):
+    """(batch, B, flat) of a problem: ``flat(t, *extra)`` broadcasts t to
+    the batch and flattens it to (B, *extra)."""
+    batch = prob.x0.shape[:-1]
+    B = math.prod(batch)
+    flat = lambda t, *extra: torch.broadcast_to(
+        t, batch + extra).reshape((B,) + extra).contiguous()
+    return batch, B, flat
+
+
+def lqr_factorize(prob: StagewiseProblem, R_eff_diag_extra: torch.Tensor) -> LQRGains:
+    """The value quadratics and gains of the ADMM x-update's LQR (whose
+    quadratics do not change between iterations) for a problem with a
+    time-invariant c, in the problem's batch layout: the parallel-in-time
+    Riccati of ``lqr_factorize_packed`` without the cached scan products.
+    The reference's analog is OSQP's one-time KKT factorization reused
+    across iterations (SparseCMPC.cpp:27-137)."""
+    h = prob.x_ref.shape[-2]
+    batch, _, flat = _flat_problem(prob)
+    gains = _factorize(
+        flat(prob.Ad, NX, NX), flat(prob.Bd, NX, NU), flat(prob.c, NX)[:, None],
+        flat(prob.x_ref, h, NX), prob.Q, prob.R, R_eff_diag_extra)
+    return LQRGains(*(t.reshape(batch + t.shape[1:]) for t in gains))
+
+
+def lqr_apply(gains: LQRGains, prob: StagewiseProblem, r_lin: torch.Tensor) -> torch.Tensor:
+    """Per-iteration LQR solve with precomputed gains, r_lin (..., h, 12) ->
+    U (..., h, 12): the two affine scans (backward costate, forward
+    closed-loop rollout), their transition products formed in the call."""
+    h = r_lin.shape[-2]
+    batch, B, flat = _flat_problem(prob)
+    packed = _with_products(LQRGains(*(t.reshape((B,) + t.shape[len(batch):]) for t in gains)))
+    U = lqr_apply_packed(packed, flat(prob.Bd, NX, NU), flat(prob.c, NX)[:, None],
+                         flat(prob.x0, NX), flat(r_lin, h, NU))
+    return U.reshape(batch + (h, NU))
 
 
 def _pcone_apply(F: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
@@ -316,10 +376,7 @@ def solve(
     scan path below."""
     dtype, device = prob.x0.dtype, prob.x0.device
     h = prob.x_ref.shape[-2]
-    batch = prob.x0.shape[:-1]
-    B = math.prod(batch)
-    flat = lambda t, *extra: torch.broadcast_to(
-        t, batch + extra).reshape((B,) + extra).contiguous()
+    batch, B, flat = _flat_problem(prob)
     unflat = lambda t: t.reshape(batch + t.shape[1:])
     per_step_c = prob.c.ndim == prob.x0.ndim + 1
     if warm is None:
@@ -410,3 +467,30 @@ def kkt_residuals(
     viol = torch.maximum(ax - prob.u, prob.l - ax)
     r_feas = torch.clamp(viol, min=0.0).amax(dim=(-1, -2))
     return {"primal": r_prim, "dual": r_dual, "feas": r_feas}
+
+
+def solve_blocked(prob: StagewiseProblem, cfg: ADMMConfig) -> tuple[torch.Tensor, dict]:
+    """ADMM with the Riccati x-update through ``lqr_factorize`` /
+    ``lqr_apply``, from a cold start (the reference's cross-check of
+    ``solve``: the same iteration, uniform rho, eq_scale not applied).
+    Returns (U (..., h, 12), {"z", "y"})."""
+    dtype, device = prob.x0.dtype, prob.x0.device
+    h = prob.x_ref.shape[-2]
+    batch = prob.x0.shape[:-1]
+    F = prob.F.to(dtype)
+    rho, a = cfg.rho, cfg.over_relax
+    gains = lqr_factorize(prob, rho * (_tr(F) @ F))
+    z = torch.zeros(batch + (h, 20), dtype=dtype, device=device)
+    y = torch.zeros_like(z)
+    U = torch.zeros(batch + (h, NU), dtype=dtype, device=device)
+    for _ in range(cfg.iterations):
+        r_lin = (((rho * z - y).reshape(batch + (h, 4, 5, 1)) * F).sum(-2)
+                 .reshape(batch + (h, NU)))
+        U_t = lqr_apply(gains, prob, r_lin)
+        U_new = a * U_t + (1.0 - a) * U
+        Fu_t = (U_t.reshape(batch + (h, 4, 1, 3)) * F).sum(-1).reshape(batch + (h, 20))
+        Fu_r = a * Fu_t + (1.0 - a) * z
+        z_new = torch.clamp(Fu_r + y / rho, prob.l, prob.u)
+        y = y + rho * (Fu_r - z_new)
+        U, z = U_new, z_new
+    return U, {"z": z, "y": y}

@@ -64,6 +64,15 @@ def rpy_to_rotmat(rpy: torch.Tensor) -> torch.Tensor:
     return r.reshape(rpy.shape[:-1] + (3, 3))
 
 
+def rotmat_to_rpy(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> (roll, pitch, yaw), the inverse of rpy_to_rotmat
+    (the groundTruthCallback extraction, ConvexMPCLocomotion.cpp:968-970)."""
+    yaw = torch.atan2(R[..., 1, 0], R[..., 0, 0])
+    pitch = torch.asin(torch.clamp(-R[..., 2, 0], -1.0, 1.0))
+    roll = torch.atan2(R[..., 2, 1], R[..., 2, 2])
+    return torch.stack([roll, pitch, yaw], dim=-1)
+
+
 def rpy_to_quat(rpy: torch.Tensor) -> torch.Tensor:
     """(roll, pitch, yaw) -> quaternion (w, x, y, z) for Rz Ry Rx."""
     half = 0.5 * rpy

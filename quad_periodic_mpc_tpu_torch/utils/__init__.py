@@ -1,2 +1,2 @@
 """Utilities (counterpart of ``quad_periodic_mpc_tpu/utils``): the signal
-filters."""
+filters, telemetry, checkpoints, the marker scene and the live retune."""
