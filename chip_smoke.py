@@ -222,6 +222,25 @@ result line) when it fails:
    into build/native/: the ring, UDP on ports from a bind-to-0 probe, the
    four safety functions, and the 500 Hz periodic loop for 0.25 s (its
    iterations and jitter, host figures).  18 prints each part's seconds.
+19. the CUDA graphs (runtime/graphs.py, slice 10): (e) first, one eager run
+   of every step the phase captures under torch.cuda.set_sync_debug_mode(
+   "error"); (a) the bench trot at B = 2048 through loop.rollout and
+   loop.rollout_graphed from one start for 20 periods: every tensor of the
+   carry and the trace equal bit for bit, one fused-build launch a period,
+   then the period timed eagerly and replayed (a synchronize after each) and
+   three replayed periods profiled; (b) the tunable trot (one
+   fused_stagewise_solve a period): 3 periods, a retune by copy_ into the
+   TunableParams, 3 more, replayed equal to eager bit for bit and the
+   forces moved by the retune; (c) the full stack at B = 256: 10 periods of
+   rollout_articulated_graphed equal to rollout_articulated bit for bit,
+   then 45 periods through one capture, (13, 13, 13, 1, 0) launches each,
+   the trot-walks gates, timed and profiled; (d) B = 1: the tick pair
+   (full_stack.capture_ticks) and the controller tick alone (the plant
+   held) for 20 chains of 26 ticks, a synchronize after every tick, p50 /
+   p99 / max ms a tick beside the eager ticks and the 2 ms budget (printed,
+   not gated), the first 4 periods equal to rollout_articulated bit for
+   bit.  A graph's first two calls run eagerly (its warm-up; they launch
+   and count), the third captures.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 object per kernel with its times and bound, and
@@ -487,6 +506,17 @@ GOLDEN_XLA_GAP = (
     {"admm": 0.003796395411427511, "pdip": 0.0009896547054033533,
      "stagewise": 0.0005499794449406181},
 )
+# slice 10: the CUDA graphs, phase 19.  (a) the bench trot for GRAPH_PERIODS
+# periods; (b) the tunable trot, GRAPH_TUNE_PERIODS periods either side of
+# the retune; (c) the full stack's first GRAPH_FS_EQUAL periods held to
+# eager, then FS_PERIODS; (d) B = 1, GRAPH_CHAINS chains of
+# GRAPH_B1_PERIODS periods, the first GRAPH_B1_EQUAL periods held to eager
+# (a graph's first two calls are its eager warm-up, so the first periods
+# include replays of the MPC tick only from the third).  Replay runs the
+# eager run's kernels on the same inputs: every tensor equal bit for bit
+GRAPH_PERIODS, GRAPH_TUNE_PERIODS, GRAPH_FS_EQUAL = 20, 3, 10
+GRAPH_B1_PERIODS, GRAPH_CHAINS, GRAPH_B1_EQUAL = 2, 20, 4
+TICK_BUDGET_MS = 2.0
 QUEUE_SLEEP_CYCLES = 200_000_000     # ~0.1 s at the H100's clock: longer than 21 calls' issue
 # H100 SXM: HBM3 rate and float32 (non-tensor-core) peak, NVIDIA data sheet
 HBM_BYTES_PER_S = 3.35e12
@@ -1414,15 +1444,6 @@ def full_stack_path(device, card: str) -> dict:
     import torch
 
     from quad_periodic_mpc_tpu_torch.control import full_stack as FS
-    from quad_periodic_mpc_tpu_torch.ops.cuda import kinematics_kernel as KK
-    from quad_periodic_mpc_tpu_torch.ops.cuda import plant_kernel as PK
-    from quad_periodic_mpc_tpu_torch.ops.cuda import stagewise_kernel as SK
-    from quad_periodic_mpc_tpu_torch.ops.cuda import wbc_kernel as WK
-
-    def counts():
-        return (KK.LAUNCHES["fused_model_eval"], WK.LAUNCHES, PK.LAUNCHES,
-                SK.LAUNCHES["fused_stagewise_solve_srb"],
-                KK.LAUNCHES["fused_contact_kinematics"])
 
     reset_all_counts()
     mc, gait, kw, plant, ctrl, cmd = full_stack_setup(device, FS_BATCH)
@@ -1436,19 +1457,18 @@ def full_stack_path(device, card: str) -> dict:
     torch.cuda.synchronize()
     traces, times, all_finite = [], [], True
     for i in range(FS_PERIODS):
-        before = counts()
+        before = fs_counts()
         t0 = time.perf_counter()
         plant, ctrl, trace = periods(plant, ctrl, 1)
         torch.cuda.synchronize()
         if FS_WARM <= i < FS_WARM + FS_TIMED:
             times.append(1e3 * (time.perf_counter() - t0))
-        per = tuple(a - b for a, b in zip(counts(), before))
+        per = tuple(a - b for a, b in zip(fs_counts(), before))
         check(per == (13, 13, 13, 1, 0), f"full-stack period {i}: launches (model_eval, "
               f"wbc, substeps, stagewise, contact) = {per}, expected (13, 13, 13, 1, 0)")
         traces.append(trace)
         all_finite &= all(bool(torch.isfinite(t).all()) for t in (*plant.fb, ctrl.fr_des))
-    launches = dict(zip(("fused_model_eval", "fused_wbc", "fused_substeps",
-                         "fused_stagewise_solve_srb", "fused_contact_kinematics"), counts()))
+    launches = dict(zip(FS_KERNELS, fs_counts()))
     check(launches["fused_contact_kinematics"] == 1,
           f"contact kinematics launched {launches['fused_contact_kinematics']} times, expected 1")
     check(all_finite, "non-finite state on the full-stack path")
@@ -1458,23 +1478,31 @@ def full_stack_path(device, card: str) -> dict:
           f"(min {min(times):.2f}, max {max(times):.2f}), {FS_BATCH / med * 1e3:.1f} "
           f"periods/s, {med / 13:.3f} ms per batched tick; launches {launches} on {card}")
 
+    trot_walks("full stack", traces, plant, z0)
+    profile_periods(lambda c, p: periods(p, c, 1)[1::-1], ctrl, plant)
+    return launches
+
+
+def trot_walks(tag: str, traces: list, plant, z0: float) -> None:
+    """The reference's test_full_stack_trot_walks gates over FS_PERIODS
+    periods' traces (each {"pos", "v_body", ...} of shape (1, B, .)) and
+    the final plant."""
+    import torch
+
     pos = torch.cat([t["pos"] for t in traces]).cpu()          # (periods, B, 3)
     vb = torch.cat([t["v_body"] for t in traces]).cpu()
     dist = float(pos[-1, :, 0].min())
     dz = float((pos[10:, :, 2] - z0).abs().max())
     qw = float(plant.fb.quat[:, 0].abs().min())
     vx = vb[15:, :, 3].mean(0)
-    print(f"[full stack] trot walks ({FS_PERIODS} periods): forward {dist:.4f} m (> 0.10), "
+    print(f"[{tag}] trot walks ({len(traces)} periods): forward {dist:.4f} m (> 0.10), "
           f"max|z - z0| after period 10 {dz:.4f} (< 0.04), min|quat_w| {qw:.5f} (> 0.99), "
           f"mean v_x after period 15 in [{float(vx.min()):.4f}, {float(vx.max()):.4f}] "
           f"(0.05, 0.3)")
-    check(dist > 0.10, f"the robot did not walk forward: {dist} m")
-    check(dz < 0.04, f"body height left the band: {dz}")
-    check(qw > 0.99, f"attitude tumbled: |quat_w| = {qw}")
-    check(bool(((vx > 0.05) & (vx < 0.3)).all()), "mean forward speed out of (0.05, 0.3)")
-
-    profile_periods(lambda c, p: periods(p, c, 1)[1::-1], ctrl, plant)
-    return launches
+    check(dist > 0.10, f"{tag}: the robot did not walk forward: {dist} m")
+    check(dz < 0.04, f"{tag}: body height left the band: {dz}")
+    check(qw > 0.99, f"{tag}: attitude tumbled: |quat_w| = {qw}")
+    check(bool(((vx > 0.05) & (vx < 0.3)).all()), f"{tag}: mean forward speed out of (0.05, 0.3)")
 
 
 def single_robot(device, card: str) -> None:
@@ -1657,16 +1685,19 @@ def compare_slice4_kernels(device, card: str) -> dict:
 
 def all_launch_counts() -> dict:
     """Every kernel's launch count, by record name."""
-    from quad_periodic_mpc_tpu_torch.ops.cuda import admm_kernel as AK
-    from quad_periodic_mpc_tpu_torch.ops.cuda import kf_kernel as FK
-    from quad_periodic_mpc_tpu_torch.ops.cuda import kinematics_kernel as KK
-    from quad_periodic_mpc_tpu_torch.ops.cuda import plant_kernel as PK
-    from quad_periodic_mpc_tpu_torch.ops.cuda import stagewise_kernel as SK
-    from quad_periodic_mpc_tpu_torch.ops.cuda import wbc_kernel as WK
+    from quad_periodic_mpc_tpu_torch.runtime import graphs
 
-    return {**SK.LAUNCHES, **KK.LAUNCHES, "fused_wbc": WK.LAUNCHES,
-            "fused_substeps": PK.LAUNCHES, "fused_kf_innovate": FK.LAUNCHES,
-            "fused_admm_iterations": AK.LAUNCHES}
+    return graphs.launch_counts()
+
+
+FS_KERNELS = ("fused_model_eval", "fused_wbc", "fused_substeps", "fused_stagewise_solve_srb",
+              "fused_contact_kinematics")
+
+
+def fs_counts() -> tuple:
+    """The full stack's kernels' launch counts, in FS_KERNELS' order."""
+    counts = all_launch_counts()
+    return tuple(counts[k] for k in FS_KERNELS)
 
 
 def estimation_path(device, card: str) -> int:
@@ -2623,16 +2654,9 @@ def elevation_mapping(device, card: str, B: int = MAPPING_BATCH,
 
 def reset_all_counts() -> None:
     """Every kernel wrapper's launch count set to 0."""
-    from quad_periodic_mpc_tpu_torch.ops.cuda import admm_kernel as AK
-    from quad_periodic_mpc_tpu_torch.ops.cuda import kf_kernel as FK
-    from quad_periodic_mpc_tpu_torch.ops.cuda import kinematics_kernel as KK
-    from quad_periodic_mpc_tpu_torch.ops.cuda import plant_kernel as PK
-    from quad_periodic_mpc_tpu_torch.ops.cuda import wbc_kernel as WK
+    from quad_periodic_mpc_tpu_torch.runtime import graphs
 
-    reset_stagewise_counts()
-    for k in KK.LAUNCHES:
-        KK.LAUNCHES[k] = 0
-    WK.LAUNCHES = PK.LAUNCHES = FK.LAUNCHES = AK.LAUNCHES = 0
+    graphs.reset_launches()
 
 
 def dryrun_expected(tier: str, backend: str, entries: int) -> dict:
@@ -3988,6 +4012,359 @@ def slice9(device, card: str) -> dict:
     return {"cli": cli, "golden": gold}
 
 
+def first_difference(got, want) -> str | None:
+    """None when every tensor of the two results is equal bit for bit;
+    else the first that is not, with how many entries differ and by how
+    much."""
+    import torch
+
+    g, w = _named_leaves(got), _named_leaves(want)
+    if len(g) != len(w):
+        return f"{len(g)} tensors against {len(w)}"
+    for i, ((name, a), (_, b)) in enumerate(zip(g, w)):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return f"tensor {i} ({name}): {a.dtype} {tuple(a.shape)} against {b.dtype} " \
+                   f"{tuple(b.shape)}"
+        if not torch.equal(a, b):
+            d = (a.double() - b.double()).abs()
+            return (f"tensor {i} ({name}) {tuple(a.shape)}: {int((a != b).sum())} entries "
+                    f"differ, largest |difference| {float(d.max()):.3g}")
+    return None
+
+
+def check_bit_equal(tag: str, got, want) -> None:
+    diff = first_difference(got, want)
+    print(f"[{tag}] replayed against eager: " + ("every tensor equal bit for bit"
+                                                  if diff is None else f"DIFFER: {diff}"))
+    check(diff is None, f"{tag}: the replay differs from the eager run: {diff}")
+
+
+def _clone(tree):
+    from quad_periodic_mpc_tpu_torch.utils.telemetry import leaves, unflatten
+
+    return unflatten(tree, [t.clone() for t in leaves(tree)])
+
+
+def graph_steps(device):
+    """The steps phase 19 captures, each with its start, and the tunables
+    of the tunable trot: ({name: (step, state)}, TunableParams).  The trot at BATCH (fused build), the tunable trot at BATCH
+    (caller-built solve), the full stack's period at FS_BATCH, and at B = 1
+    its MPC and plain ticks and the controller tick alone (the plant held),
+    MPC and plain; and the trot's instance 0 with no batch axis (the CLI's
+    rollout)."""
+    from quad_periodic_mpc_tpu_torch.config import EstimatorConfig, SwingConfig, TunableParams
+    from quad_periodic_mpc_tpu_torch.control import full_stack as FS
+    from quad_periodic_mpc_tpu_torch.control import loop as L
+    from quad_periodic_mpc_tpu_torch.utils.telemetry import leaves, unflatten
+
+    mpc_cfg, loop_cfg, solver = _slice5_configs()
+    est_cfg = EstimatorConfig()
+    ctrl, plant, cmd, gait, dist = trot_inputs(device)
+    tun = TunableParams.from_config(mpc_cfg, loop_cfg, est_cfg, SwingConfig(), device=device)
+    trot = L.RolloutCarry(plant, ctrl)
+    # instance 0 with no batch axis, as the CLI's rollout runs it
+    one = lambda tree: unflatten(tree, [t[0] for t in leaves(tree)])
+    steps = {
+        "trot": (L.period_step(cmd, gait, dist, mpc_cfg, loop_cfg, est_cfg, solver), (trot,)),
+        "trot, no batch axis": (L.period_step(one(cmd), gait, one(dist), mpc_cfg, loop_cfg,
+                                              est_cfg, solver), (one(trot),)),
+        "tunable trot": (L.period_step(cmd, gait, dist, mpc_cfg, loop_cfg, est_cfg, solver,
+                                       tunable=tun), (trot,)),
+    }
+    mc, fs_gait, kw, fs_plant, fs_ctrl, fs_cmd = full_stack_setup(device, FS_BATCH)
+    steps["full stack period"] = (FS.period_step(fs_cmd, fs_gait, mc, substeps=10, **kw),
+                                  (FS.FullStackCarry(fs_plant, fs_ctrl),))
+    mc, fs_gait, kw, p1, c1, cmd1 = full_stack_setup(device, 1)
+    for do_mpc, which in ((True, "MPC"), (False, "plain")):
+        steps[f"B=1 {which} tick"] = (FS.tick_step(cmd1, fs_gait, mc, do_mpc, substeps=10, **kw),
+                                      (FS.FullStackCarry(p1, c1),))
+        steps[f"B=1 controller {which} tick"] = (controller_alone(p1, cmd1, fs_gait, mc, do_mpc,
+                                                                  kw), (c1,))
+    return steps, tun
+
+
+def controller_alone(plant, cmd, gait, mc, do_mpc: bool, kw: dict):
+    """The controller tick with the plant held (bench.py:854-878's
+    controller stream): step(ctrl) -> (ctrl',)."""
+    from quad_periodic_mpc_tpu_torch.control import full_stack as FS
+
+    return lambda ctrl: (FS.controller_tick(plant, ctrl, cmd, gait, mc, do_mpc, **kw)[0],)
+
+
+def graph_sync_check(device, card: str) -> None:
+    """(e) One eager run of every step phase 19 captures under
+    torch.cuda.set_sync_debug_mode("error"): a call that makes the host
+    wait for the card raises."""
+    import torch
+
+    steps, _ = graph_steps(device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for step, state in steps.values():
+            step(*state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print(f"[graphs] (e) one eager run of each of {len(steps)} captured steps ("
+          f"{', '.join(steps)}) under set_sync_debug_mode('error'): no synchronising call, "
+          f"{time.perf_counter() - t0:.2f} s on {card}")
+
+
+def timed_calls(fn, state, n: int):
+    """n calls of fn from state, each ending in a synchronize: (the state
+    after them, ms of each call)."""
+    import torch
+
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        state = fn(state)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return state, times
+
+
+def graph_main_path(device, card: str) -> dict:
+    """(a) The bench trot at BATCH (fused build, ADMM-30, h = 10):
+    loop.rollout and loop.rollout_graphed from one start for GRAPH_PERIODS
+    periods, every tensor of the carry and the trace equal bit for bit and
+    one fused-build launch a period; then the period timed eagerly and
+    replayed, each period ending in a synchronize, and three replayed
+    periods profiled.  Returns the counted launches."""
+    import torch
+
+    from quad_periodic_mpc_tpu_torch.config import EstimatorConfig
+    from quad_periodic_mpc_tpu_torch.control import loop as L
+    from quad_periodic_mpc_tpu_torch.runtime import graphs
+
+    mpc_cfg, loop_cfg, solver = _slice5_configs()
+    est_cfg = EstimatorConfig()
+    ctrl, plant, cmd, gait, dist = trot_inputs(device)
+    args = (cmd, gait, dist, mpc_cfg, loop_cfg, est_cfg, solver)
+    want = L.rollout(GRAPH_PERIODS, plant, ctrl, *args)
+    reset_all_counts()
+    got = L.rollout_graphed(GRAPH_PERIODS, plant, ctrl, *args)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in all_launch_counts().items() if v}
+    print(f"[graphs] (a) bench trot B={BATCH}: loop.rollout_graphed, {GRAPH_PERIODS} periods "
+          f"({graphs.WARMUP} eager warm-up periods, then replays): launches {launched}")
+    check(launched == {"fused_stagewise_solve_srb": GRAPH_PERIODS},
+          f"(a): launches {launched}, expected {GRAPH_PERIODS} fused-build launches alone")
+    check_bit_equal("graphs (a)", got, want)
+
+    step = L.period_step(*args)
+    first = L.RolloutCarry(plant, ctrl)
+    _, eager = timed_calls(lambda c: step(c)[0], first, GRAPH_PERIODS)
+    g = graphs.capture(step, first)
+    carry, warm = timed_calls(lambda c: g(c)[0], first, graphs.WARMUP + 1)
+    reset_all_counts()
+    carry, replay = timed_calls(lambda c: g(c)[0], carry, GRAPH_PERIODS)
+    launched = {k: v for k, v in all_launch_counts().items() if v}
+    check(launched == {"fused_stagewise_solve_srb": GRAPH_PERIODS},
+          f"(a): {GRAPH_PERIODS} replays launched {launched}")
+    med_e, med_r = statistics.median(eager), statistics.median(replay)
+    print(f"[graphs] (a) ms a period: eager median {med_e:.3f} (min {min(eager):.3f}), "
+          f"replayed median {med_r:.3f} (min {min(replay):.3f}, max {max(replay):.3f}), "
+          f"{med_e / med_r:.2f}x; the capturing call {warm[-1]:.1f} ms (the warm-up periods "
+          f"{', '.join(f'{t:.1f}' for t in warm[:-1])} ms) on {card}")
+    prof = profile_periods(lambda c, p: tuple(g(L.RolloutCarry(p, c))[0])[::-1], carry.ctrl,
+                           carry.plant, unit="replayed period")
+    busy_of_replay("(a)", prof, med_r)
+    return launched
+
+
+def busy_of_replay(tag: str, prof: dict | None, replay_ms: float) -> None:
+    """The profiled device ms of a replayed period over its unprofiled
+    median ms (the profiler slows the replays' issue)."""
+    if prof is not None:
+        print(f"[graphs] {tag} device {prof['device_ms']:.2f} ms of the {replay_ms:.3f} ms "
+              f"unprofiled replayed period: {100 * prof['device_ms'] / replay_ms:.1f}% busy")
+
+
+def graph_retune(device, card: str) -> dict:
+    """(b) The tunable trot at BATCH (TunableParams, one
+    fused_stagewise_solve a period): GRAPH_TUNE_PERIODS periods, the
+    z weight x10, alpha 4e-4 and f_max 60 written into the tunables by
+    copy_, GRAPH_TUNE_PERIODS more; replayed and eager equal bit for bit,
+    and the retune moved the forces.  Returns the replays' launches."""
+    import torch
+
+    from quad_periodic_mpc_tpu_torch.runtime import graphs
+
+    steps, tun = graph_steps(device)
+    step, (start,) = steps["tunable trot"]
+    base = [t.clone() for t in tun]
+
+    def retune():
+        w = tun.weights.clone()
+        w[5] *= 10.0
+        tun.weights.copy_(w)
+        tun.alpha.copy_(torch.full_like(tun.alpha, 4e-4))
+        tun.f_max.copy_(torch.full_like(tun.f_max, 60.0))
+
+    def run(fn, retuned: bool):
+        for t, b in zip(tun, base):
+            t.copy_(b)
+        carry = start
+        for i in range(2 * GRAPH_TUNE_PERIODS):
+            if retuned and i == GRAPH_TUNE_PERIODS:
+                retune()
+            carry = fn(carry)[0]
+        torch.cuda.synchronize()
+        return _clone(carry)
+
+    want = run(step, True)
+    untuned = run(step, False)
+    g = graphs.capture(step, start)
+    reset_all_counts()
+    got = run(g, True)
+    launched = {k: v for k, v in all_launch_counts().items() if v}
+    moved = _maxdiff(want.ctrl.fr_des, untuned.ctrl.fr_des)
+    print(f"[graphs] (b) tunable trot B={BATCH}: {GRAPH_TUNE_PERIODS} periods, a retune by "
+          f"copy_ (z weight x10, alpha 4e-4, f_max 60), {GRAPH_TUNE_PERIODS} more: launches "
+          f"{launched}; the retune moved the forces by {moved:.3g} N")
+    check(launched == {"fused_stagewise_solve": 2 * GRAPH_TUNE_PERIODS},
+          f"(b): launches {launched}")
+    check(moved > 1.0, f"(b): the retune moved the forces by only {moved}")
+    check_bit_equal("graphs (b)", got, want)
+    for t, b in zip(tun, base):
+        t.copy_(b)
+    return launched
+
+
+def graph_full_stack(device, card: str) -> dict:
+    """(c) The full stack at FS_BATCH (full_stack_setup): GRAPH_FS_EQUAL
+    periods of rollout_articulated_graphed against rollout_articulated, bit
+    for bit; then FS_PERIODS periods from the start through one capture,
+    (13, 13, 13, 1, 0) launches each, the trot-walks gates, the replays'
+    ms (the periods full_stack_path times) and three profiled.  Returns
+    the launches of the FS_PERIODS periods."""
+    import torch
+
+    from quad_periodic_mpc_tpu_torch.control import full_stack as FS
+    from quad_periodic_mpc_tpu_torch.runtime import graphs
+
+    mc, gait, kw, plant, ctrl, cmd = full_stack_setup(device, FS_BATCH)
+    z0 = float(plant.fb.pos[0, 2])
+    want = FS.rollout_articulated(GRAPH_FS_EQUAL, plant, ctrl, cmd, gait, mc, substeps=10, **kw)
+    got = FS.rollout_articulated_graphed(GRAPH_FS_EQUAL, plant, ctrl, cmd, gait, mc,
+                                         substeps=10, **kw)
+    check_bit_equal("graphs (c)", got, want)
+
+    g = graphs.capture(FS.period_step(cmd, gait, mc, substeps=10, **kw),
+                       FS.FullStackCarry(plant, ctrl))
+    reset_all_counts()
+    carry, traces, times, finite = FS.FullStackCarry(plant, ctrl), [], [], True
+    for i in range(FS_PERIODS):
+        before = fs_counts()
+        t0 = time.perf_counter()
+        carry, end = g(carry)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        per = tuple(a - b for a, b in zip(fs_counts(), before))
+        check(per == (13, 13, 13, 1, 0), f"(c) period {i}: launches (model_eval, wbc, "
+              f"substeps, stagewise, contact) = {per}, expected (13, 13, 13, 1, 0)")
+        traces.append({k: v[None].clone() for k, v in end.items()})
+        finite &= all(bool(torch.isfinite(t).all()) for t in (*carry.plant.fb, carry.ctrl.fr_des))
+    check(finite, "(c): non-finite state")
+    launched = dict(zip(FS_KERNELS[:4], fs_counts()))
+    timed = times[FS_WARM:FS_WARM + FS_TIMED]
+    med = statistics.median(timed)
+    print(f"[graphs] (c) full stack B={FS_BATCH}: {FS_PERIODS} periods through one capture "
+          f"({graphs.WARMUP} eager, the capturing period {times[graphs.WARMUP]:.1f} ms), "
+          f"periods {FS_WARM}-{FS_WARM + FS_TIMED - 1} replayed: median {med:.3f} ms/period "
+          f"(min {min(timed):.3f}, max {max(timed):.3f}), {med / 13:.4f} ms per batched tick; "
+          f"launches {launched} on {card}")
+    trot_walks("graphs (c)", traces, carry.plant, z0)
+    prof = profile_periods(lambda c, p: tuple(g(FS.FullStackCarry(p, c))[0])[::-1],
+                           carry.ctrl, carry.plant, unit="replayed period")
+    busy_of_replay("(c)", prof, med)
+    return launched
+
+
+def _quantiles(ms: list) -> str:
+    import numpy as np
+
+    return (f"p50 {np.percentile(ms, 50):.3f} / p99 {np.percentile(ms, 99):.3f} / max "
+            f"{max(ms):.3f} ms")
+
+
+def graph_single_robot(device, card: str) -> dict:
+    """(d) B = 1: the tick pair (full_stack.capture_ticks) for GRAPH_CHAINS
+    chains of GRAPH_B1_PERIODS periods, and the controller alone (the plant
+    held) the same, each tick ending in a synchronize; the eager ticks the
+    same.  The first GRAPH_B1_EQUAL periods equal rollout_articulated's bit
+    for bit.  p50 / p99 / max ms a tick beside the 2 ms budget (printed,
+    not gated).  Returns the tick pair's launches."""
+    import torch
+
+    from quad_periodic_mpc_tpu_torch.control import full_stack as FS
+    from quad_periodic_mpc_tpu_torch.runtime import graphs
+
+    mc, gait, kw, plant, ctrl, cmd = full_stack_setup(device, 1)
+    ticks = 13 * GRAPH_B1_PERIODS * GRAPH_CHAINS
+    start = FS.FullStackCarry(plant, ctrl)
+    want = FS.rollout_articulated(GRAPH_B1_EQUAL, plant, ctrl, cmd, gait, mc, substeps=10,
+                                  **kw)[0]
+
+    def run(mpc_tick, plain_tick, state):
+        times, equal_at = [], None
+        for i in range(ticks):
+            t0 = time.perf_counter()
+            state = (mpc_tick if i % 13 == 0 else plain_tick)(state)[0]
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            if i == 13 * GRAPH_B1_EQUAL - 1:
+                equal_at = _clone(state)
+        return state, times, equal_at
+
+    tick = lambda do_mpc: FS.tick_step(cmd, gait, mc, do_mpc, substeps=10, **kw)
+    alone = lambda do_mpc: controller_alone(plant, cmd, gait, mc, do_mpc, kw)
+    _, eager, _ = run(tick(True), tick(False), start)
+    _, eager_c, _ = run(alone(True), alone(False), ctrl)
+    reset_all_counts()
+    mpc_tick, plain_tick = FS.capture_ticks(plant, ctrl, cmd, gait, mc, substeps=10, **kw)
+    end, replay, got = run(mpc_tick, plain_tick, start)
+    launched = {k: v for k, v in all_launch_counts().items() if v}
+    check_bit_equal("graphs (d)", got, want)
+    check(bool(torch.isfinite(end.plant.fb.pos).all()), "(d): non-finite B = 1 plant")
+    periods = ticks // 13
+    check(launched == {"fused_model_eval": ticks, "fused_wbc": ticks, "fused_substeps": ticks,
+                       "fused_stagewise_solve_srb": periods},
+          f"(d): launches {launched} over {ticks} ticks")
+    mpc_c = graphs.capture(alone(True), ctrl)
+    _, replay_c, _ = run(mpc_c, mpc_c.also(alone(False)), ctrl)
+    # the replayed ticks only: each graph's first WARMUP calls run eagerly,
+    # the next captures
+    warm = {13 * k for k in range(graphs.WARMUP + 1)} | set(range(1, graphs.WARMUP + 2))
+    replayed = lambda ms: [t for i, t in enumerate(ms) if i not in warm]
+    print(f"[graphs] (d) B=1, {GRAPH_CHAINS} chains of {13 * GRAPH_B1_PERIODS} ticks, a "
+          f"synchronize after each: composed tick replayed {_quantiles(replayed(replay))}, "
+          f"eager {_quantiles(eager)}; controller alone replayed "
+          f"{_quantiles(replayed(replay_c))}, eager {_quantiles(eager_c)}; budget "
+          f"{TICK_BUDGET_MS} ms (printed, not gated); launches {launched} on {card}")
+    return launched
+
+
+def slice10(device, card: str) -> dict:
+    """Phase 19.  Returns the launches by kernel of its counted runs."""
+    t0 = time.perf_counter()
+    launches, times = {}, {}
+    for tag, fn in (("e", lambda: graph_sync_check(device, card)),
+                    ("a", lambda: _add(launches, graph_main_path(device, card))),
+                    ("b", lambda: _add(launches, graph_retune(device, card))),
+                    ("c", lambda: _add(launches, graph_full_stack(device, card))),
+                    ("d", lambda: _add(launches, graph_single_robot(device, card)))):
+        t = time.perf_counter()
+        fn()
+        times[tag] = round(time.perf_counter() - t, 2)
+    print(f"[graphs] phase 19 took {time.perf_counter() - t0:.1f} s (by part, s: {times}) "
+          f"on {card}")
+    return launches
+
+
 def slice5(device, card: str) -> dict:
     """Phases 11-13.  Returns the launches of their counted runs, by path
     and kernel."""
@@ -4083,6 +4460,12 @@ def main() -> int:
                       f"{name} was launched no time on the {path} path")
             for name, n in surfaces[path].items():
                 by_name[name].setdefault("launches_by_path", {})[path] = n
+        graphed = slice10(device, card)
+        for name in ("fused_stagewise_solve_srb", "fused_stagewise_solve", "fused_model_eval",
+                     "fused_wbc", "fused_substeps"):
+            check(graphed.get(name, 0) > 0, f"{name} was launched no time on the graphs path")
+        for name, n in graphed.items():
+            by_name[name].setdefault("launches_by_path", {})["graphs"] = n
         if "jax" in sys.modules or "quad_periodic_mpc_tpu" in sys.modules:
             raise SmokeFailure("JAX or the JAX package was imported")
     except SmokeFailure as e:

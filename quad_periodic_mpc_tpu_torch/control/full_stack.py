@@ -14,7 +14,9 @@ plant) against the 18-DoF articulated simulator:
     joint PD + tau_ff
     articulated_sim.step_fast x substeps (plant at 10 kHz)
 
-Batched; the reference's ``lax.scan`` loops are Python loops here.
+Batched; the reference's ``lax.scan`` loops are Python loops here over
+``period_step`` and ``tick_step``, which ``rollout_articulated_graphed``
+and ``capture_ticks`` replay from CUDA graphs instead.
 ``kin_backend`` / ``wbc_backend`` = "pallas" run the fused kernels
 (``ops/cuda/kinematics_kernel``, ``wbc_kernel``, ``plant_kernel``: CUDA on
 a CUDA device, their plain versions on the CPU); "xla" runs the plain
@@ -39,6 +41,7 @@ from quad_periodic_mpc_tpu_torch.ops import gait as gait_ops
 from quad_periodic_mpc_tpu_torch.ops import linalg
 from quad_periodic_mpc_tpu_torch.ops.cuda import kinematics_kernel, plant_kernel
 from quad_periodic_mpc_tpu_torch.ops.rotations import quat_to_rotmat
+from quad_periodic_mpc_tpu_torch.runtime import graphs
 from quad_periodic_mpc_tpu_torch.sim import articulated_sim as art
 
 
@@ -159,13 +162,11 @@ def controller_tick(
     return ctrl, tau, (A_t, Ainv_t, G_t, C_t, info)
 
 
-def rollout_articulated(
-    n_mpc_steps: int,
-    plant: art.ArtState,
-    ctrl: mpc_mod.ControllerState,
+def tick_step(
     cmd: mpc_mod.Command,
     gait: gait_ops.GaitParams,
     mc: fb.ModelConstants,
+    do_mpc: bool,
     mpc_cfg: MPCConfig = MPCConfig(horizon=10),
     loop_cfg: LoopConfig = LoopConfig(),
     est_cfg: EstimatorConfig = EstimatorConfig(),
@@ -179,13 +180,14 @@ def rollout_articulated(
     use_wbc: bool = True,
     wbc_backend: str = "xla",
     kin_backend: str = "xla",
-) -> tuple[FullStackCarry, dict]:
-    """Run n_mpc_steps MPC periods of the full torque-level stack.  Returns
-    (carry, trace) with trace["pos"/"quat"/"v_body"] (n_mpc_steps, ..., k):
-    the plant at the end of each period."""
+):
+    """One 500 Hz tick of the composed stack (``controller_tick``, then the
+    plant's substeps on the tick's model terms) with everything but the
+    carry closed over: ``step(carry) -> (carry',)``.  do_mpc: the MPC tick
+    (every 13th) or a plain one."""
     sub_dt = loop_cfg.dt / substeps
 
-    def control_tick(carry: FullStackCarry, do_mpc: bool) -> FullStackCarry:
+    def step(carry: FullStackCarry) -> tuple[FullStackCarry]:
         plant, ctrl = carry
         ctrl, tau, (_, Ainv_t, G_t, C_t, info) = controller_tick(
             plant, ctrl, cmd, gait, mc, do_mpc, mpc_cfg=mpc_cfg,
@@ -204,14 +206,89 @@ def rollout_articulated(
             for _ in range(substeps):
                 plant, pf, _ = art.step_fast(plant, tau, sub_dt, contact, cache,
                                              info.Jc, pf)
-        return FullStackCarry(plant, ctrl)
+        return (FullStackCarry(plant, ctrl),)
 
-    carry = FullStackCarry(plant, ctrl)
-    trace = {"pos": [], "quat": [], "v_body": []}
-    for _ in range(n_mpc_steps):
-        carry = control_tick(carry, do_mpc=True)
+    return step
+
+
+TRACE_FIELDS = ("pos", "quat", "v_body")
+
+
+def period_step(cmd, gait, mc, loop_cfg: LoopConfig = LoopConfig(), **kw):
+    """One MPC period of the composed stack (an MPC tick and
+    iterations_between_mpc - 1 plain ticks): ``step(carry) -> (carry',
+    trace)`` with trace {"pos", "quat", "v_body"} the plant at the period's
+    end.  The keyword arguments are ``tick_step``'s."""
+    mpc_tick = tick_step(cmd, gait, mc, True, loop_cfg=loop_cfg, **kw)
+    plain_tick = tick_step(cmd, gait, mc, False, loop_cfg=loop_cfg, **kw)
+
+    def step(carry: FullStackCarry) -> tuple[FullStackCarry, dict]:
+        carry, = mpc_tick(carry)
         for _ in range(loop_cfg.iterations_between_mpc - 1):
-            carry = control_tick(carry, do_mpc=False)
-        for k in trace:
-            trace[k].append(getattr(carry.plant.fb, k))
+            carry, = plain_tick(carry)
+        return carry, {k: getattr(carry.plant.fb, k) for k in TRACE_FIELDS}
+
+    return step
+
+
+def _periods(step, carry: FullStackCarry, n: int, keep=lambda t: t):
+    """``step`` iterated n times from carry: (carry, trace) with trace[k]
+    the periods' ends, each through ``keep``, stacked on a leading axis."""
+    trace = {k: [] for k in TRACE_FIELDS}
+    for _ in range(n):
+        carry, end = step(carry)
+        for k in TRACE_FIELDS:
+            trace[k].append(keep(end[k]))
     return carry, {k: torch.stack(v) for k, v in trace.items()}
+
+
+def rollout_articulated(
+    n_mpc_steps: int,
+    plant: art.ArtState,
+    ctrl: mpc_mod.ControllerState,
+    cmd: mpc_mod.Command,
+    gait: gait_ops.GaitParams,
+    mc: fb.ModelConstants,
+    **kw,
+) -> tuple[FullStackCarry, dict]:
+    """Run n_mpc_steps MPC periods of the full torque-level stack; the
+    keyword arguments are ``tick_step``'s (mpc_cfg, loop_cfg, est_cfg,
+    solver, wbc_gains, wbc_pdip, model, swing_cfg, contact, substeps = 10,
+    use_wbc, wbc_backend, kin_backend).  Returns (carry, trace) with
+    trace["pos"/"quat"/"v_body"] (n_mpc_steps, ..., k): the plant at the
+    end of each period."""
+    return _periods(period_step(cmd, gait, mc, **kw), FullStackCarry(plant, ctrl), n_mpc_steps)
+
+
+def rollout_articulated_graphed(
+    n_mpc_steps: int,
+    plant: art.ArtState,
+    ctrl: mpc_mod.ControllerState,
+    cmd: mpc_mod.Command,
+    gait: gait_ops.GaitParams,
+    mc: fb.ModelConstants,
+    **kw,
+) -> tuple[FullStackCarry, dict]:
+    """``rollout_articulated`` with the period replayed from a CUDA graph
+    (``runtime/graphs.capture``; the first ``graphs.WARMUP`` periods run
+    eagerly): the same arguments, kernels, launches and result, the trace
+    copied on the card.  On CPU tensors every period runs eagerly."""
+    carry = FullStackCarry(plant, ctrl)
+    graphed = graphs.capture(period_step(cmd, gait, mc, **kw), carry)
+    return _periods(graphed, carry, n_mpc_steps, keep=torch.clone)
+
+
+def capture_ticks(plant: art.ArtState, ctrl: mpc_mod.ControllerState, cmd, gait, mc, **kw):
+    """The single robot's latency unit: the MPC tick and the plain tick
+    (``tick_step``, keyword arguments as there) captured as two graphs over
+    one set of state buffers in one memory pool, from (plant, ctrl).
+    Returns (mpc_tick, plain_tick), each ``tick(carry) -> (carry',)``;
+    a period is one MPC tick, then iterations_between_mpc - 1 plain ticks,
+    each handing the next the carry it returned.  Each runs its first
+    ``graphs.WARMUP`` calls eagerly and replays from then on.  On CPU
+    tensors the two are the eager steps."""
+    mpc_tick = graphs.capture(tick_step(cmd, gait, mc, True, **kw), FullStackCarry(plant, ctrl))
+    plain = tick_step(cmd, gait, mc, False, **kw)
+    if isinstance(mpc_tick, graphs.Graphed):
+        return mpc_tick, mpc_tick.also(plain)
+    return mpc_tick, plain

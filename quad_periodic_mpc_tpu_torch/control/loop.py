@@ -4,8 +4,9 @@
 The 500 Hz process loop against the analytic plant: an outer loop over
 MPC periods and an inner loop over the iterations_between_mpc control
 ticks (FSM_State_Locomotion.cpp:13).  The reference's ``lax.scan`` is a
-Python loop here.  Batched: a leading batch axis rolls out many scenarios
-in lockstep.  Live-tunable parameters go to every MPC step and swing
+Python loop here over ``period_step`` (its ``mpc_period``), which
+``rollout_graphed`` replays from a CUDA graph instead.  Batched: a leading
+batch axis rolls out many scenarios in lockstep.  Live-tunable parameters go to every MPC step and swing
 update.  The terrain tier (the CMPCLocomotion_Cv / VisionMPC closed loop)
 plugs in through ``heightmap`` (map-aware footholds and a map body-height
 command) and ``ground_fn`` (the plant's true surface).
@@ -13,6 +14,7 @@ command) and ``ground_fn`` (the plant's true surface).
 
 from __future__ import annotations
 
+import inspect
 from typing import NamedTuple
 
 import torch
@@ -30,6 +32,7 @@ from quad_periodic_mpc_tpu_torch.control import mpc as mpc_ctrl
 from quad_periodic_mpc_tpu_torch.models.a1 import A1, RobotModel
 from quad_periodic_mpc_tpu_torch.ops import gait as gait_ops
 from quad_periodic_mpc_tpu_torch.ops.rotations import quat_to_rpy
+from quad_periodic_mpc_tpu_torch.runtime import graphs
 from quad_periodic_mpc_tpu_torch.sim import srb_sim
 from quad_periodic_mpc_tpu_torch.terrain import heightmap as hmap
 
@@ -135,10 +138,7 @@ class RolloutTrace(NamedTuple):
     est_amp: torch.Tensor      # (..., steps)
 
 
-def rollout(
-    n_mpc_steps: int,
-    plant: srb_sim.PlantState,
-    ctrl: mpc_ctrl.ControllerState,
+def period_step(
     cmd: mpc_ctrl.Command,
     gait: gait_ops.GaitParams,
     dist,
@@ -153,18 +153,13 @@ def rollout(
     ground_fn=None,
     terrain_cfg: TerrainLoopConfig = TerrainLoopConfig(),
     tunable: TunableParams | None = None,
-) -> tuple[RolloutCarry, RolloutTrace]:
-    """Run n_mpc_steps MPC periods (each = iterations_between_mpc ticks),
-    on the device of the given states.  dist: a ``DisturbanceParams`` or a
-    ``WrenchDisturbance``; tunable: ``TunableParams`` for every MPC step and
-    swing update (retune by writing into its tensors between calls).
-
-    Terrain tier: ``heightmap`` switches on map-aware foothold selection
-    (``cmpc_variant.foothold_update`` in every swing update) and, per
-    terrain_cfg, the map's body-height command; ``ground_fn`` (xy -> z)
-    gives the plant the true surface, so terrain-blind swing targets strike
-    risers early.  A (B, H, W) heightmap runs B terrain scenarios in
-    lockstep."""
+):
+    """One MPC period with everything but the carry closed over (the
+    counterpart of the reference's ``mpc_period``): ``step(carry) ->
+    (carry', trace)``, one MPC tick and iterations_between_mpc - 1 plain
+    ticks, with trace the period's ``RolloutTrace`` (no step axis).  The
+    arguments are ``rollout``'s; ``rollout`` iterates it and
+    ``rollout_graphed`` replays it from a CUDA graph."""
     if heightmap is not None:
         def foothold_adjust(pf_target, state, obs):
             p0 = torch.where(state.first_swing[..., None], obs.p_feet, state.swing_p0)
@@ -198,19 +193,79 @@ def rollout(
             ground_fn=ground_fn)
         return RolloutCarry(plant, ctrl)
 
-    carry = RolloutCarry(plant, ctrl)
-    traces = []
-    for _ in range(n_mpc_steps):
+    def step(carry: RolloutCarry) -> tuple[RolloutCarry, RolloutTrace]:
         carry = control_tick(carry, do_mpc=True)
         for _ in range(loop_cfg.iterations_between_mpc - 1):
             carry = control_tick(carry, do_mpc=False)
-        traces.append(RolloutTrace(
+        return carry, RolloutTrace(
             x=carry.plant.x, forces=carry.ctrl.fr_des, f_est=carry.ctrl.est.f_est,
-            est_freq=carry.ctrl.est.est_freq, est_amp=carry.ctrl.est.est_amp,
-        ))
-    # steps after the batch axes, as the reference's moveaxis of the scan
-    batch_ndim = plant.t.ndim
-    trace = RolloutTrace(*(
-        torch.stack([getattr(tr, f) for tr in traces], dim=batch_ndim)
+            est_freq=carry.ctrl.est.est_freq, est_amp=carry.ctrl.est.est_amp)
+
+    return step
+
+
+def _periods(step, carry: RolloutCarry, n: int, keep=lambda trace: trace):
+    """``step`` iterated n times from carry: (carry, the periods' traces,
+    each through ``keep``, with the steps after the batch axes, as the
+    reference's moveaxis of the scan)."""
+    traces = []
+    for _ in range(n):
+        carry, trace = step(carry)
+        traces.append(keep(trace))
+    return carry, RolloutTrace(*(
+        torch.stack([getattr(tr, f) for tr in traces], dim=carry.plant.t.ndim)
         for f in RolloutTrace._fields))
-    return carry, trace
+
+
+def rollout(
+    n_mpc_steps: int,
+    plant: srb_sim.PlantState,
+    ctrl: mpc_ctrl.ControllerState,
+    cmd: mpc_ctrl.Command,
+    gait: gait_ops.GaitParams,
+    dist,
+    mpc_cfg: MPCConfig,
+    loop_cfg: LoopConfig,
+    est_cfg: EstimatorConfig,
+    solver: ADMMConfig,
+    model: RobotModel = A1,
+    swing_cfg: SwingConfig = SwingConfig(),
+    tick_balance: TickBalanceGains | None = None,
+    heightmap: hmap.HeightMap | None = None,
+    ground_fn=None,
+    terrain_cfg: TerrainLoopConfig = TerrainLoopConfig(),
+    tunable: TunableParams | None = None,
+) -> tuple[RolloutCarry, RolloutTrace]:
+    """Run n_mpc_steps MPC periods (each = iterations_between_mpc ticks),
+    on the device of the given states.  dist: a ``DisturbanceParams`` or a
+    ``WrenchDisturbance``; tunable: ``TunableParams`` for every MPC step and
+    swing update (retune by writing into its tensors between calls).
+
+    Terrain tier: ``heightmap`` switches on map-aware foothold selection
+    (``cmpc_variant.foothold_update`` in every swing update) and, per
+    terrain_cfg, the map's body-height command; ``ground_fn`` (xy -> z)
+    gives the plant the true surface, so terrain-blind swing targets strike
+    risers early.  A (B, H, W) heightmap runs B terrain scenarios in
+    lockstep."""
+    step = period_step(cmd, gait, dist, mpc_cfg, loop_cfg, est_cfg, solver, model,
+                       swing_cfg, tick_balance, heightmap, ground_fn, terrain_cfg, tunable)
+    return _periods(step, RolloutCarry(plant, ctrl), n_mpc_steps)
+
+
+def rollout_graphed(n_mpc_steps: int, plant: srb_sim.PlantState,
+                    ctrl: mpc_ctrl.ControllerState, *args,
+                    **kw) -> tuple[RolloutCarry, RolloutTrace]:
+    """``rollout`` with the period replayed from a CUDA graph
+    (``runtime/graphs.capture``): the first ``graphs.WARMUP`` periods run
+    eagerly, the next captures the period, and it and the rest replay it.
+    The same arguments (``rollout``'s after ctrl), the same kernels and
+    launches, the same result.  Each period's trace is copied on the card;
+    nothing is read back.  ``tunable``'s tensors are read at every replay.
+    On CPU tensors every period runs eagerly.  The terrain period is not
+    captured yet: pass no ``heightmap`` (call ``rollout`` with one)."""
+    if inspect.signature(period_step).bind(*args, **kw).arguments.get("heightmap") is not None:
+        raise ValueError("rollout_graphed runs no heightmap yet; call rollout")
+    carry = RolloutCarry(plant, ctrl)
+    graphed = graphs.capture(period_step(*args, **kw), carry)
+    return _periods(graphed, carry, n_mpc_steps,
+                    keep=lambda trace: RolloutTrace(*(t.clone() for t in trace)))

@@ -56,6 +56,7 @@ from quad_periodic_mpc_tpu_torch.ops.rotations import (
     quat_to_rpy,
     rpy_to_rotmat,
 )
+from quad_periodic_mpc_tpu_torch.utils.consts import const
 
 
 class Observation(NamedTuple):
@@ -375,7 +376,7 @@ def _fused_build_solve(state, R, r_feet, x_comp, f_for_qp, x_k, x_ref, table, mp
     u = torch.clamp(u, max=1e4).reshape(batch + (h, 20))
     F = constraints.pyramid_block(mpc.mu, dtype, device)
     Qdiag = 2.0 * condense.full_weight(
-        torch.as_tensor(mpc.weights, dtype=dtype, device=device))
+        const(mpc.weights, dtype, device))
     R_eff = (
         2.0 * mpc.alpha * torch.eye(12, dtype=dtype, device=device)
         + solver.rho * torch.kron(torch.eye(4, dtype=dtype, device=device),
@@ -436,7 +437,7 @@ def swing_update(
     str_new = torch.where(
         state.first_swing, swing_times, state.swing_time_remaining - loop.dt)
 
-    as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    as_t = lambda a: const(a, dtype, device)
     pf_target = swing.raibert_foothold(
         p_body=obs.p,
         v_world=obs.v,

@@ -34,6 +34,7 @@ from quad_periodic_mpc_tpu_torch.ops import constraints as con
 from quad_periodic_mpc_tpu_torch.ops import linalg, qp_pdip
 from quad_periodic_mpc_tpu_torch.ops.qp_admm import QPData
 from quad_periodic_mpc_tpu_torch.ops.rotations import quat_to_rotmat, rpy_to_quat
+from quad_periodic_mpc_tpu_torch.utils.consts import const
 
 N_DOF = 18
 
@@ -121,9 +122,9 @@ def _weighted_pinv(J: torch.Tensor, Ainv: torch.Tensor, damping: float) -> torch
 def cone_block(mu: float, dtype=torch.float32, device="cuda") -> torch.Tensor:
     """The 6x3 WBIC friction block Uf (SingleContact.cpp:17-29): rows
     [fz; fx+mu fz; -fx+mu fz; fy+mu fz; -fy+mu fz; -fz]."""
-    return torch.tensor(
+    return const(
         [[0.0, 0.0, 1.0], [1.0, 0.0, mu], [-1.0, 0.0, mu], [0.0, 1.0, mu],
-         [0.0, -1.0, mu], [0.0, 0.0, -1.0]], dtype=dtype, device=device)
+         [0.0, -1.0, mu], [0.0, 0.0, -1.0]], dtype, device)
 
 
 def _gen_vel(state: fb.FBState) -> torch.Tensor:
@@ -138,12 +139,11 @@ def _build_tasks(state: fb.FBState, contact: fb.ContactInfo, inp: WBCInput,
     for stance legs."""
     batch = state.pos.shape[:-1]
     device = state.pos.device
-    gain = lambda g: torch.tensor(g, dtype=dtype, device=device)
+    gain = lambda g: const(g, dtype, device)
     R = quat_to_rotmat(state.quat)               # body -> world
 
     # body orientation task (BodyOriTask.cpp)
-    q_inv = state.quat * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=dtype,
-                                      device=device)
+    q_inv = state.quat * const([1.0, -1.0, -1.0, -1.0], dtype, device)
     ori_err_q = quat_product(rpy_to_quat(inp.rpy_des), q_inv)
     ori_err_q = torch.where(ori_err_q[..., 0:1] < 0, -ori_err_q, ori_err_q)
     vec = ori_err_q[..., 1:4]
@@ -323,7 +323,7 @@ def run(
     device = state.pos.device
     return WBCOutput(
         tau_ff=tau_ff, q_des=q_des, qd_des=qd_des,
-        kp_joint=torch.tensor(gains.kp_joint, dtype=dtype, device=device),
-        kd_joint=torch.tensor(gains.kd_joint, dtype=dtype, device=device),
+        kp_joint=const(gains.kp_joint, dtype, device),
+        kd_joint=const(gains.kd_joint, dtype, device),
         fr=fr.reshape(fr.shape[:-1] + (4, 3)),
     )

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from quad_periodic_mpc_tpu_torch.ops.rotations import skew
+from quad_periodic_mpc_tpu_torch.utils.consts import const
 
 NX = 13
 NU = 12
@@ -43,25 +44,27 @@ def ct_dynamics(
     relative to the CoM, world frame; x_drag: scalar or (...,).
     """
     dtype, device = R.dtype, R.device
-    x_drag = torch.as_tensor(x_drag, dtype=dtype, device=device)
+    x_drag = const(x_drag, dtype, device)
     batch = torch.broadcast_shapes(R.shape[:-2], r_feet.shape[:-2], x_drag.shape)
     x_drag = torch.broadcast_to(x_drag, batch)
 
     A = torch.zeros(batch + (NX, NX), dtype=dtype, device=device)
     A[..., 0:3, 6:9] = torch.broadcast_to(R.transpose(-1, -2), batch + (3, 3))
-    A[..., 3, 9] = 1.0
-    A[..., 4, 10] = 1.0
-    A[..., 5, 11] = 1.0
+    # fill_, not `= 1.0`: on a card a Python number assigned into a 0-dim
+    # slice (no batch axis) is a synchronous copy from the host
+    A[..., 3, 9].fill_(1.0)
+    A[..., 4, 10].fill_(1.0)
+    A[..., 5, 11].fill_(1.0)
     A[..., 11, 9] = x_drag
-    A[..., 11, 12] = 1.0
+    A[..., 11, 12].fill_(1.0)
 
     # I_world^{-1} = R diag(1/I_body) R^T (I_world = R diag(I) R^T,
     # SolverMPC.cpp:593)
-    I_inv_diag = 1.0 / torch.as_tensor(I_body_diag, dtype=dtype, device=device)
+    I_inv_diag = 1.0 / const(I_body_diag, dtype, device)
     I_inv = (R * I_inv_diag[..., None, :]) @ R.transpose(-1, -2)
     torque_blocks = I_inv[..., None, :, :] @ skew(r_feet)       # (..., 4, 3, 3)
     torque_blocks = torch.broadcast_to(torque_blocks, batch + (4, 3, 3))
-    inv_m = 1.0 / torch.as_tensor(mass, dtype=dtype, device=device)
+    inv_m = 1.0 / const(mass, dtype, device)
     force_block = inv_m * torch.eye(3, dtype=dtype, device=device)
 
     B = torch.zeros(batch + (NX, NU), dtype=dtype, device=device)

@@ -11,11 +11,12 @@ to zero by the f_z <= 0 bound instead of being eliminated.
 from __future__ import annotations
 
 import torch
+from quad_periodic_mpc_tpu_torch.utils.consts import const
 
 
 def pyramid_block(mu, dtype=torch.float32, device="cuda") -> torch.Tensor:
     """The 5x3 friction pyramid block F (SolverMPC.cpp:657-665)."""
-    mu_inv = 1.0 / torch.as_tensor(mu, dtype=dtype, device=device)
+    mu_inv = 1.0 / const(mu, dtype, device)
     z = torch.zeros_like(mu_inv)
     o = torch.ones_like(mu_inv)
     return torch.stack(
@@ -37,7 +38,7 @@ def bounds(
     """(l, u) of shape (..., h, 4, 5) from the (..., h, 4) contact table
     in {0, 1} (SolverMPC.cpp:643-655, lb = 0 at :846-849)."""
     g = gait_table.to(dtype)
-    fm = torch.as_tensor(f_max, dtype=dtype, device=g.device)
+    fm = const(f_max, dtype, g.device)
     if fm.ndim:
         fm = fm[..., None, None]
     fz_ub = g * fm

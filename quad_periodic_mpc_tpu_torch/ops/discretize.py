@@ -15,6 +15,7 @@ reduces exactly to
 from __future__ import annotations
 
 import torch
+from quad_periodic_mpc_tpu_torch.utils.consts import const
 
 
 def nilpotent_zoh(
@@ -24,7 +25,7 @@ def nilpotent_zoh(
     dt,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Exact ZOH discretization for A with A^3 = 0; dt scalar or (...,)."""
-    dt = torch.as_tensor(dt, dtype=A.dtype, device=A.device)
+    dt = const(dt, A.dtype, A.device)
     dt1 = dt[..., None, None] if dt.ndim else dt
     eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
     A2 = A @ A

@@ -25,6 +25,7 @@ from quad_periodic_mpc_tpu_torch.ops import condense, constraints, discretize
 from quad_periodic_mpc_tpu_torch.ops.qp_admm import QPData
 from quad_periodic_mpc_tpu_torch.ops.qp_stagewise import StagewiseProblem
 from quad_periodic_mpc_tpu_torch.ops.rotations import quat_to_rotmat, quat_to_rpy
+from quad_periodic_mpc_tpu_torch.utils.consts import const
 
 
 class RobotObs(NamedTuple):
@@ -114,7 +115,7 @@ def build_stagewise(
 
     weights, alpha, mu, f_max = _cost_params(cfg, tunable, dtype, device)
     try:
-        R_stage = 2.0 * torch.as_tensor(alpha, dtype=dtype, device=device) * torch.ones(
+        R_stage = 2.0 * const(alpha, dtype, device) * torch.ones(
             12, dtype=dtype, device=device)
     except RuntimeError as e:
         raise TypeError(f"alpha of shape {tuple(torch.as_tensor(alpha).shape)} does not "
@@ -136,6 +137,6 @@ def _cost_params(cfg: MPCConfig, tunable: TunableParams | None, dtype, device):
     """(weights, alpha, mu, f_max): the tunable's tensors where given, else
     the config's values."""
     if tunable is None:
-        return (torch.as_tensor(cfg.weights, dtype=dtype, device=device),
+        return (const(cfg.weights, dtype, device),
                 cfg.alpha, cfg.mu, cfg.f_max)
     return tunable.weights.to(dtype), tunable.alpha, tunable.mu, tunable.f_max

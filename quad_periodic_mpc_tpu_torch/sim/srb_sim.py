@@ -24,6 +24,7 @@ from quad_periodic_mpc_tpu_torch.models import srb
 from quad_periodic_mpc_tpu_torch.models.a1 import A1
 from quad_periodic_mpc_tpu_torch.ops import discretize
 from quad_periodic_mpc_tpu_torch.ops.rotations import rpy_to_quat, rpy_to_rotmat
+from quad_periodic_mpc_tpu_torch.utils.consts import const
 
 
 class DisturbanceParams(NamedTuple):
@@ -94,7 +95,7 @@ def init_plant(
 def disturbance_wrench(dist, t: torch.Tensor, mass: float) -> torch.Tensor:
     """(..., 6) acceleration-space wrench [tau_acc(3); lin_acc(3)] of a
     ``DisturbanceParams`` or a ``WrenchDisturbance``."""
-    two_pi = torch.tensor(2.0 * math.pi, dtype=t.dtype, device=t.device)
+    two_pi = const(2.0 * math.pi, t.dtype, t.device)
     if isinstance(dist, WrenchDisturbance):
         return dist.static + dist.amp * torch.sin(
             two_pi * dist.freq * t[..., None] + dist.phase)

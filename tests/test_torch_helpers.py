@@ -89,6 +89,9 @@ def test_import_leaves_jax_out():
         " 'testing.golden']\n"
         "missing = [m for m in slice9 if p.__name__ + '.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
+        "slice10 = ['runtime.graphs', 'utils.consts']\n"
+        "missing = [m for m in slice10 if p.__name__ + '.' + m not in sys.modules]\n"
+        "assert not missing, missing\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
@@ -99,8 +102,9 @@ def test_import_leaves_jax_out():
     # cmpc_variant), slice 8's (the FSM and its controllers, the gait
     # scheduler, utils.filters) and slice 9's (the CLI and __main__, whose
     # import runs nothing, the runtime bridge, the utilities, the fixtures
-    # and the golden solves) included
-    assert int(out.stdout.strip()) >= 82
+    # and the golden solves) and slice 10's (the CUDA graphs, the constant
+    # cache) included
+    assert int(out.stdout.strip()) >= 84
 
 
 @pytest.mark.parametrize("name", [

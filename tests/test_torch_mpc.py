@@ -117,9 +117,11 @@ def test_mpc_step_matches_jax():
     np.testing.assert_allclose(ctrl_t.warm_z.numpy(), _np(ctrl_j.warm_z), atol=2e-3)
 
 
-def test_rollout_matches_jax_three_periods():
+@pytest.mark.parametrize("rollout", ["rollout", "rollout_graphed"])
+def test_rollout_matches_jax_three_periods(rollout):
     """loop.rollout for 3 MPC periods (39 control ticks: mpc_step, 13
-    swing_update calls per period, plant steps).  Plant state to 1e-4
+    swing_update calls per period, plant steps), and loop.rollout_graphed,
+    which runs the same period step on the CPU.  Plant state to 1e-4
     (m, m/s, rad: the 2e-3 N force gate integrated over 0.078 s through
     1/m; measured 7.5e-6), forces to the 2e-3 N kernel gate (measured
     2.8e-4), foot positions and swing targets to 1e-5 m (measured 6e-8)."""
@@ -127,7 +129,7 @@ def test_rollout_matches_jax_three_periods():
     (mj, lj, ej, sj), (mt, lt, et, st) = _configs()
     carry_j, tr_j = j_loop.rollout(3, plant, ctrl, cmd, gait, dist, mj, lj, ej, sj)
     args_t = _port(plant, ctrl, cmd, gait, dist)
-    carry_t, tr_t = t_loop.rollout(3, *args_t, mt, lt, et, st)
+    carry_t, tr_t = getattr(t_loop, rollout)(3, *args_t, mt, lt, et, st)
     np.testing.assert_allclose(carry_t.plant.x.numpy(), _np(carry_j.plant.x), atol=1e-4)
     np.testing.assert_allclose(
         carry_t.plant.p_feet.numpy(), _np(carry_j.plant.p_feet), atol=1e-5)
