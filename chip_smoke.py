@@ -416,6 +416,29 @@ CONFIG4 = dict(gait_names=("trotting", "bounding", "pacing", "galloping"), phase
                terrain_risers=(0.0, 0.03, 0.06, 0.09),
                terrain_edge_x=(0.20, 0.25, 0.30, 0.35, 0.40), map_size=32, map_resolution=0.05)
 CONFIG4_REFERENCE, CONFIG4_PERIODS = (2, 4, 20), 20
+# slice 11: a split run takes the Newton-Schulz inverses' batch-global
+# decisions over the whole batch (parallel/batch_group.py), so a split is
+# the unsplit program; on the card it may still differ from the unsplit run
+# in the last bits where cuBLAS picks another GEMM for another batch count.
+# SPLIT_GAP is the largest |split - unsplit| of a per-instance metric
+# allowed to dry-run tiers 1 and 1b (1.43e-4 at tier 1 on an H100 when each
+# chunk decided alone, SPLIT_GAP_BEFORE) and to 16e, config 4's condensed
+# sweep (the reference settings' h and ADMM iterations,
+# CONFIG4_CONDENSED_PERIODS periods) split CONFIG4_SPLIT ways: the bound
+# predicted in PERF.md before the first run on the card
+SPLIT_GAP, SPLIT_GAP_BEFORE = 2e-5, 1.43e-4
+CONFIG4_SPLIT, CONFIG4_CONDENSED_PERIODS = 4, 10
+# the split runs' ms a period (with the set-up) on an H100 when the chunks
+# ran one after another: printed beside this run's
+SEQUENTIAL_SPLIT_MS = {"config 3": 481.8}
+# the bucket's escalated set on the card against the CPU's: seed residuals
+# with ties and with a NaN, k = 8 // 2, and lax.top_k's indices for them
+# (JAX 0.9.0 on the CPU: the lower index first among equal values, NaN
+# first); then SELECTION_B seeded residuals on a 1/64 grid (ties
+# everywhere) with NaNs, k = B // 4
+SELECTION_CASES = {"tied": ([0.5, 0.7, 0.7, 0.1, 0.7, 0.3, 0.2, 0.7], [1, 2, 4, 7]),
+                   "nan": ([0.5, 0.7, 0.7, 0.1, 0.7, float("nan"), 0.2, 0.7], [5, 1, 2, 4])}
+SELECTION_B = 10000
 # each sweep's periods timed after its set-up and a warm period
 SWEEP_TIMED_PERIODS = 10
 # slice 8: the FSM and its controllers, phase 17.  17a: the torque-level
@@ -2709,6 +2732,29 @@ def _close(a, b, atol: float, rtol: float) -> bool:
                               atol=atol, rtol=rtol).all())
 
 
+def bucket_selection(device) -> None:
+    """Phase 16a's first check: the Newton-Schulz bucket's escalated set
+    (``linalg._escalated``) on the card equals the CPU's, and lax.top_k's
+    on SELECTION_CASES."""
+    import torch
+
+    from quad_periodic_mpc_tpu_torch.ops import linalg
+
+    g = torch.Generator().manual_seed(15)
+    big = torch.floor(torch.rand(SELECTION_B, generator=g) * 61) / 64
+    big[torch.randint(SELECTION_B, (20,), generator=g)] = float("nan")
+    cases = {**{k: (torch.tensor(r), 2, want) for k, (r, want) in SELECTION_CASES.items()},
+             "seeded": (big, 4, None)}
+    for name, (r, frac, want) in cases.items():
+        cpu = linalg._escalated(r, frac).tolist()
+        on_card = linalg._escalated(r.to(device), frac).cpu().tolist()
+        check(on_card == cpu and (want is None or cpu == want),
+              f"bucket selection {name}: card {on_card[:8]}, CPU {cpu[:8]}, lax.top_k {want}")
+    print(f"[dry run] the bucket's escalated set on the card equals the CPU's (and lax.top_k's "
+          f"on the tied and NaN residuals): {', '.join(cases)} (B = {SELECTION_B}, "
+          f"{len(cpu)} escalated)")
+
+
 def dryrun_on_card(device, card: str, entries: int = DRYRUN_ENTRIES, ref=None) -> dict:
     """Phase 16a: parallel/dryrun.dryrun_multichip on a mesh of `entries`
     copies of the one card, its tiers (and tier 1b's three arms) side by side
@@ -2722,6 +2768,7 @@ def dryrun_on_card(device, card: str, entries: int = DRYRUN_ENTRIES, ref=None) -
 
     from quad_periodic_mpc_tpu_torch.parallel import dryrun
 
+    bucket_selection(device)
     jobs = {("1", "xla"): ("1", "xla", None), ("1", "pallas"): ("1", "pallas", None),
             ("2", "pallas"): ("2", "pallas", None),
             **{("1b", arm): ("1b", "xla", (arm,)) for arm in dryrun.ARMS},
@@ -2761,6 +2808,13 @@ def dryrun_on_card(device, card: str, entries: int = DRYRUN_ENTRIES, ref=None) -
           + f", argmin {dryrun.ARMS[pick]!r}; tier 2 {t2['oracle_mean']:.8f}; tier 3 mean z "
           f"{t3['oracle_zmean']:.8f}; split gaps {t1['max_gap']:.3g} / {t2['max_gap']:.3g} / "
           f"{t3['max_gap']:.3g}")
+    split_gaps = {"tier 1": t1["max_gap"], "tier 1 pallas": res["1", "pallas"]["out"]["max_gap"],
+                  **{f"tier 1b {a}": arms[a]["max_gap"] for a in dryrun.ARMS}}
+    print(f"[dry run] split in lockstep against the oracle, max |vx_rms gap| (each chunk "
+          f"deciding alone: tier 1 {SPLIT_GAP_BEFORE:g}; bound {SPLIT_GAP:g}): " + ", ".join(
+              f"{k} {v:.3g}" for k, v in split_gaps.items()))
+    for k, v in split_gaps.items():
+        check(v <= SPLIT_GAP, f"dry run {k}: split against oracle {v:.3g} > {SPLIT_GAP:g}")
     if ref is not None:
         tol = dict(atol=dryrun.ATOL, rtol=dryrun.RTOL)
         figures = [("tier 1 mean", t1["oracle_mean"], ref["1"]["mean"]),
@@ -2909,7 +2963,9 @@ def gait_sweep(device, card: str, phases: int = CONFIG3_PHASES,
     gap = max(float((res_s.vx_rms - res.vx_rms).abs().max()),
               float((res_s.height_rms - res.height_rms).abs().max()))
     print(f"[{tag}] split over {split} entries against one: max gap {gap:.3g}, best instance "
-          f"{int(res_s.best_instance)} / {int(res.best_instance)}")
+          f"{int(res_s.best_instance)} / {int(res.best_instance)}; "
+          f"{1e3 * info_s['run_s'] / periods:.1f} ms/period with the set-up in lockstep "
+          f"(one chunk after another: {SEQUENTIAL_SPLIT_MS[tag]} ms)")
     check(_close(res_s.vx_rms, res.vx_rms, dryrun.ATOL, dryrun.RTOL)
           and _close(res_s.height_rms, res.height_rms, dryrun.ATOL, dryrun.RTOL),
           f"{tag}: the split run differs from the unsplit one by {gap}")
@@ -2953,6 +3009,47 @@ def terrain_sweep(device, card: str, spec_kw=None, periods: int = CONFIG4_PERIOD
     return launches.get("fused_stagewise_solve_srb", 0), info
 
 
+def condensed_split(device, card: str) -> dict:
+    """Phase 16e: config 4's condensed sweep (the 10,000 scenarios at the
+    reference settings' h and ADMM iterations in the "xla" loop, so the
+    Newton-Schulz bucket decides over the batch every period) for
+    CONFIG4_CONDENSED_PERIODS periods, unsplit and then split CONFIG4_SPLIT
+    ways on the card in lockstep: the split within SPLIT_GAP of the unsplit
+    run at every instance, its best instance under the tie rule, no kernel
+    launched.  Returns both runs' ms a period and the gap."""
+    import torch
+
+    from quad_periodic_mpc_tpu_torch.config import ADMMConfig, MPCConfig
+    from quad_periodic_mpc_tpu_torch.parallel import mesh as ML
+    from quad_periodic_mpc_tpu_torch.parallel import sweep as SW
+
+    tag, periods = "config 4 condensed", CONFIG4_CONDENSED_PERIODS
+    spec = SW.SweepSpec(**CONFIG4)
+    _, ref_h, ref_iters = CONFIG4_REFERENCE
+    kw = dict(mpc_cfg=MPCConfig(horizon=ref_h), solver=ADMMConfig(iterations=ref_iters))
+    res, launches, info = timed_sweep(tag, device, card, spec, periods, **kw)
+    mesh = ML.make_mesh(devices=[device] * CONFIG4_SPLIT)
+    res_s, launches_s, info_s = timed_sweep(f"{tag} split", device, card, spec, periods,
+                                            mesh=mesh, **kw)
+    if device.type == "cuda":
+        check(not launches and not launches_s, f"{tag}: the xla loop launched {launches} / "
+              f"{launches_s}")
+    gap = max(float((res_s.vx_rms - res.vx_rms).abs().max()),
+              float((res_s.height_rms - res.height_rms).abs().max()))
+    equal = torch.equal(res_s.vx_rms, res.vx_rms) and torch.equal(res_s.height_rms,
+                                                                  res.height_rms)
+    ms = {k: 1e3 * i["run_s"] / periods for k, i in (("unsplit", info), ("split", info_s))}
+    print(f"[{tag}] split over {CONFIG4_SPLIT} entries in lockstep against one: max gap "
+          f"{gap:.3g} ({'bit for bit' if equal else 'not bit for bit'}; bound {SPLIT_GAP:g}), "
+          f"best instance {int(res_s.best_instance)} / {int(res.best_instance)}; "
+          f"{ms['split']:.1f} / {ms['unsplit']:.1f} ms/period with the set-up on {card}")
+    check(gap <= SPLIT_GAP, f"{tag}: the split run differs from the unsplit one by {gap}")
+    check(SW.argmin_agrees(res.vx_rms, int(res.best_instance), int(res_s.best_instance),
+                           SPLIT_GAP, 0.0), f"{tag}: the split run's best instance")
+    return {"ms_per_period": ms["unsplit"], "split_ms_per_period": ms["split"], "gap": gap,
+            "bit_equal": equal}
+
+
 def dist_on_card(device, card: str) -> None:
     """Phase 16d: parallel/dist_check as one torch.distributed rank (NCCL on
     the card, or Gloo on the CPU, through --init-method at world size 1) and
@@ -2989,6 +3086,13 @@ def dist_on_card(device, card: str) -> None:
     check(len(gathers) == 2 and all(ln.endswith(f"over 1 rank(s), backend {backend}")
                                     for ln in gathers),
           f"dist_check as one rank: expected two {backend} all_gathers, saw {gathers}")
+    # the Newton-Schulz decisions through the group: one gather (two
+    # all_gathers) per MPC step
+    decided = [ln for ln in outs[1][1].splitlines() if "decision collectives" in ln]
+    print("[dist] " + "; ".join(decided))
+    check(len(decided) == 1 and decided[0].endswith(f"over 1 rank(s), backend {backend}")
+          and int(decided[0].split()[1]) > 0,
+          f"dist_check as one rank: expected its decisions through {backend}, saw {decided}")
     print(f"[dist] dist_check one process {json.dumps({k: v for k, v in one.items() if k != 'vx_rms'})}"
           f"; as one {'NCCL' if device.type == 'cuda' else 'Gloo'} rank: "
           f"{'equal on every key' if one == rank else 'DIFFERENT'} "
@@ -2998,8 +3102,8 @@ def dist_on_card(device, card: str) -> None:
 
 def sweeps(device, card: str) -> tuple[dict, dict, dict]:
     """Phase 16.  Returns the launches of its counted runs by kernel, the
-    fused-build launches at each of the sweeps' SRB_SHAPES, and the two
-    sweeps' figures of PERF.md's "where the time goes"."""
+    fused-build launches at each of the sweeps' SRB_SHAPES, and the sweeps'
+    figures of PERF.md's "where the time goes"."""
     t0 = time.perf_counter()
     by_kernel = dryrun_on_card(device, card, ref=DRYRUN_REF)
     g_one, g_split, g_info = gait_sweep(device, card)
@@ -3007,13 +3111,15 @@ def sweeps(device, card: str) -> tuple[dict, dict, dict]:
     tier2 = by_kernel.get("fused_stagewise_solve_srb", 0)
     by_kernel["fused_stagewise_solve_srb"] = tier2 + g_one + g_split + t_one
     dist_on_card(device, card)
+    c_info = condensed_split(device, card)
     print(f"[sweeps] phase 16 took {time.perf_counter() - t0:.1f} s")
     # tier 2's counted launches (checked against dryrun_expected) are its
     # oracle's periods at B = 16 and those of the entries' chunks at B = 2
     oracle = tier2 // (DRYRUN_ENTRIES + 1)
     by_shape = {"config 3 sweep": g_one, "config 4 sweep": t_one,
                 "dry run tier 2": oracle, "dry run tier 2 chunk": tier2 - oracle}
-    return by_kernel, by_shape, {"config 3": g_info, "config 4": t_info}
+    return by_kernel, by_shape, {"config 3": g_info, "config 4": t_info,
+                                 "config 4 condensed": c_info}
 
 
 def _on(device, a, dtype=None):

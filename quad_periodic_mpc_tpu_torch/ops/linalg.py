@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import torch
 
+from quad_periodic_mpc_tpu_torch.parallel import batch_group
+
 
 def spd_inverse(M: torch.Tensor) -> torch.Tensor:
     """Exact batched inverse of a small SPD matrix via recursive Schur
@@ -186,10 +188,13 @@ def ns_inverse(K: torch.Tensor, iters: int = 30, X0: torch.Tensor | None = None,
 
     A warm X0 is guarded per instance: seeds with ||I - X0 K||_inf >= 0.9
     (the all-zeros first step included) fall back to the cold seed.  The
-    trip count adapts over the whole batch: ``warm_iters`` rounds if every
-    seed is contractive, else the full ``iters``.  ``polish`` adds rounds
-    (the reference runs them at a higher matmul precision; here every
-    product is full precision already)."""
+    trip count adapts over the whole batch, as the reference's
+    ``jnp.all(contractive)`` over its global array: ``warm_iters`` rounds if
+    every seed of the batch group (``parallel.batch_group.current()``: this
+    call's batch, or every chunk of a split one) is contractive, else the
+    full ``iters``; one host read per call.  ``polish`` adds rounds (the
+    reference runs them at a higher matmul precision; here every product is
+    full precision already)."""
     eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
     norminf = _inf_norm(K)[..., None, None]
     X_cold = eye.expand(K.shape) / norminf
@@ -202,9 +207,29 @@ def ns_inverse(K: torch.Tensor, iters: int = 30, X0: torch.Tensor | None = None,
         contractive = _inf_norm(eye - M) < 0.9
         c = contractive[..., None, None]
         X = (2.0 * eye - torch.where(c, M, K / norminf)) @ torch.where(c, X0, X_cold)
-        rounds = max((warm_iters if bool(contractive.all()) else iters) - 1, 0)
+        every = batch_group.current().all("ns_inverse.contractive", bool(contractive.all()))
+        rounds = max((warm_iters if every else iters) - 1, 0)
     return _ns_rounds(K, X, rounds + polish)
 
+
+def _escalated(r: torch.Tensor, bucket_frac: int) -> torch.Tensor | None:
+    """The reference's two batch-global decisions of ``ns_inverse_bucket``
+    over the batch group: None when more than k = max(B_global //
+    bucket_frac, 1) seeds are non-contractive (r >= 0.9 or NaN: the
+    whole-batch branch), else the indices into this chunk of its instances
+    among the global top k of the seed residuals r (possibly none).  The top
+    k is ``lax.top_k``'s set: a stable descending sort puts equal residuals
+    in index order and NaN first (r is a sum of absolute values, so never a
+    negative NaN, which ``lax.top_k`` would put last).  One host read; in a
+    group of chunks r is gathered (on the host) first."""
+    r_all, offset = batch_group.current().gather("ns_inverse_bucket.r", r)
+    k = max(r_all.shape[0] // bucket_frac, 1)
+    if int((~(r_all < 0.9)).sum()) > k:
+        return None
+    top = torch.sort(r_all, descending=True, stable=True).indices[:k]
+    if r_all.shape[0] != r.shape[0]:
+        top = top[(top >= offset) & (top < offset + r.shape[0])] - offset
+    return top.to(r.device)
 
 
 def ns_inverse_bucket(K: torch.Tensor, X0: torch.Tensor, warm_iters: int = 1,
@@ -224,13 +249,15 @@ def ns_inverse_bucket(K: torch.Tensor, X0: torch.Tensor, warm_iters: int = 1,
     rescued from the cold seed.  When more than k seeds are non-contractive
     (the all-cold first step) the whole batch continues instead.
 
-    The reference takes both decisions (more than k bad seeds; any failed
-    bucket instance) on the device under ``lax.cond``; here each is a host
-    decision, one device-to-host read each per call.  ``torch.topk`` may
-    order equal residuals differently from ``lax.top_k``: that changes which
-    of two tied instances gets the extra rounds, not the fixed point."""
-    B, n = K.shape[0], K.shape[-1]
-    k = max(B // bucket_frac, 1)
+    The branch and the escalated set are the reference's, over its global
+    batch: B is that of the batch group (``parallel.batch_group.current()``),
+    and a chunk of a split batch escalates those of its instances whose
+    global index is among the global top k, ties to the lower index as
+    ``lax.top_k`` breaks them (see ``_escalated``).  The reference takes
+    them on the device under ``lax.cond``; here they are host decisions.
+    The rescue's ``any(failed)`` stays this chunk's: a rescued instance is
+    recomputed alone, so the decision changes no value."""
+    n = K.shape[-1]
     eye = torch.eye(n, dtype=K.dtype, device=K.device)
     norminf = _inf_norm(K)[..., None, None]
     X_cold = eye.expand(K.shape) / norminf
@@ -247,8 +274,12 @@ def ns_inverse_bucket(K: torch.Tensor, X0: torch.Tensor, warm_iters: int = 1,
     X = (2.0 * eye - M) @ X
     X = _ns_rounds(K, X, warm_iters - 1)
 
-    if int((~contractive).sum()) <= k:
-        idx = torch.topk(r, k).indices
+    idx = _escalated(r, bucket_frac)
+    if idx is None:
+        # all-cold branch (first step): the cold-seeded majority reaches
+        # cold_iters rounds in total
+        X = _ns_rounds(K, X, max(cold_iters - warm_iters, 0))
+    elif idx.numel():
         Ksub = K[idx]
         Xsub = _ns_rounds(Ksub, X[idx], cold_iters)     # continue from the scaled seed
         # ~(x <= t) rather than x > t, so that NaN counts as failed
@@ -258,10 +289,6 @@ def ns_inverse_bucket(K: torch.Tensor, X0: torch.Tensor, warm_iters: int = 1,
             Xr = _ns_rounds(Ksub, torch.where(f, X_cold[idx], Xsub), cold_iters)
             Xsub = torch.where(f, Xr, Xsub)
         X = X.index_copy(0, idx, Xsub)
-    else:
-        # all-cold branch (first step): the cold-seeded majority reaches
-        # cold_iters rounds in total
-        X = _ns_rounds(K, X, max(cold_iters - warm_iters, 0))
     return _ns_rounds(K, X, polish)
 
 

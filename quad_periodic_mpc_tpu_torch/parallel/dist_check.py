@@ -3,12 +3,22 @@
 
 Runs one Monte-Carlo sweep rollout across ``torch.distributed`` ranks: each
 rank builds the global scenarios, keeps its slice [rank B/N, (rank+1) B/N)
-of the batch, splits that slice over ``--local-devices`` chunks, rolls each
-out, and all-gathers the per-instance tracking errors and final states.
-Every rank then computes the mean, the argmin and the checksum from the
-gathered tensors in global order, so the ranks agree bit for bit.  The JSON
-line also carries the per-instance errors (``vx_rms``, in global order), so
-that an argmin can be compared under a tie rule.
+of the batch, splits that slice over ``--local-devices`` chunks, rolls them
+out in lockstep (``mesh.run_lockstep``), and all-gathers the per-instance
+tracking errors and final states.  Every rank then computes the mean, the
+argmin and the checksum from the gathered tensors in global order, so the
+ranks agree bit for bit.  The JSON line also carries the per-instance
+errors (``vx_rms``, in global order), so that an argmin can be compared
+under a tie rule.
+
+The chunks of every rank form one ``batch_group.Ranks`` group, so the
+batch-global decisions of the Newton-Schulz inverses (``ops/linalg.py``)
+are taken over the whole batch, as the reference's one program over its
+global arrays takes them.  They go through the default process group (NCCL
+on the card, Gloo on the CPU): per MPC step of the condensed ADMM, one
+gather of the B seed residuals (two all_gathers: the chunks' sizes with the
+exchange's tag and count, then the values).  Their count goes to stderr.
+Without a process group the chunks form a ``batch_group.Threads`` group.
 
 One rank per process (NCCL on CUDA, Gloo on the CPU):
 
@@ -36,6 +46,7 @@ from quad_periodic_mpc_tpu_torch.config import (
 )
 from quad_periodic_mpc_tpu_torch.control import loop as loop_mod
 from quad_periodic_mpc_tpu_torch.control import mpc as mpc_mod
+from quad_periodic_mpc_tpu_torch.parallel import batch_group
 from quad_periodic_mpc_tpu_torch.parallel import mesh as mesh_lib
 from quad_periodic_mpc_tpu_torch.parallel import sweep as sweep_lib
 from quad_periodic_mpc_tpu_torch.parallel.scaling import fence, init_distributed
@@ -71,8 +82,9 @@ def _all_gather(x: torch.Tensor, world: int) -> torch.Tensor:
 
 def _weak_scaling(args, device, dtype, world: int, rank: int, reps: int = 3) -> dict:
     """Weak scaling across the ranks: one MPC step of 4 instances per local
-    chunk on every rank, timed on rank 0 alone (the others wait at a
-    barrier) and then on all ranks at once.  Keyed by the global chunk
+    chunk on every rank (the chunks in lockstep), timed on rank 0 alone (its
+    chunks their own batch group; the others wait at a barrier) and then on
+    all ranks at once (one group over the ranks).  Keyed by the global chunk
     count; efficiency = throughput_N / (world * throughput_1)."""
     batch = 4 * args.local_devices
     spec = sweep_lib.SweepSpec(gait_names=("trotting",), phase_offsets=batch)
@@ -81,30 +93,32 @@ def _weak_scaling(args, device, dtype, world: int, rank: int, reps: int = 3) -> 
     chunks = mesh_lib.shard_batch((ctrl, srb_sim.observe(plant), cmd, gait, plant.t),
                                   mesh, batch)
 
-    def run() -> float:
+    def step(chunk):
+        return mpc_mod.mpc_step(*chunk, MPC_CFG, LoopConfig(), EstimatorConfig(), SOLVER)
+
+    def run(across_ranks: bool) -> float:
         fence(mesh)
         t0 = time.perf_counter()
         for _ in range(reps):
-            for c_ctrl, obs, c_cmd, c_gait, t in chunks:
-                mpc_mod.mpc_step(c_ctrl, obs, c_cmd, c_gait, t, MPC_CFG, LoopConfig(),
-                                 EstimatorConfig(), SOLVER)
+            group = (batch_group.Ranks if across_ranks else batch_group.Threads)(mesh.size)
+            mesh_lib.run_lockstep(step, chunks, mesh, group)
         fence(mesh)
         return (time.perf_counter() - t0) / reps
 
-    run()                                       # warm-up
+    run(False)                                  # warm-up
     grouped = dist.is_initialized()
     alone = torch.zeros(1, dtype=torch.float64, device=device)
     if grouped:
         dist.barrier()
     if rank == 0:
-        alone[0] = run()
+        alone[0] = run(False)
     if grouped:
         dist.broadcast(alone, 0)
     thr_1 = batch / float(alone[0])
     rec = {str(args.local_devices): {"throughput": thr_1, "efficiency": 1.0}}
     if world > 1:
         dist.barrier()
-        together = torch.tensor([run()], dtype=torch.float64, device=device)
+        together = torch.tensor([run(True)], dtype=torch.float64, device=device)
         dist.all_reduce(together, op=dist.ReduceOp.MAX)
         thr_n = world * batch / float(together[0])
         rec[str(world * args.local_devices)] = {"throughput": thr_n,
@@ -146,12 +160,20 @@ def main(argv=None) -> dict:
         n_local = B // world
         local = mesh_lib.shard_batch(tree, mesh_lib.make_mesh(devices=[device] * world), B)[rank]
         mesh = mesh_lib.make_mesh(devices=[device] * args.local_devices)
-        per_chunk = []
-        for plant, ctrl, cmd, gait, dist_p in mesh_lib.shard_batch(local, mesh, n_local):
+
+        def rollout(chunk):
+            plant, ctrl, cmd, gait, dist_p = chunk
             _, trace = loop_mod.rollout(args.steps, plant, ctrl, cmd, gait, dist_p, MPC_CFG,
                                         LoopConfig(), EstimatorConfig(), SOLVER)
             vx_rms = torch.sqrt(torch.mean((trace.x[..., 9] - cmd.vx[..., None]) ** 2, -1))
-            per_chunk.append((vx_rms, trace.x[..., -1, :12]))
+            return vx_rms, trace.x[..., -1, :12]
+
+        group = (batch_group.Ranks if args.init_method else batch_group.Threads)(mesh.size)
+        per_chunk = mesh_lib.run_lockstep(rollout, mesh_lib.shard_batch(local, mesh, n_local),
+                                          mesh, group)
+        if args.init_method:
+            print(f"dist_check: {group.collectives} decision collectives (all_gather) over "
+                  f"{world} rank(s), backend {dist.get_backend()}", file=sys.stderr, flush=True)
         vx_rms, final = (_all_gather(t, world) for t in mesh_lib.gather(per_chunk, device))
         result = {
             "process_id": rank,

@@ -2,7 +2,9 @@
 
 Runs the product split over an n-entry mesh, tier by tier, each against the
 unsplit run on the mesh's first device (the oracle), with the reference's
-specs, steps, solvers and tolerances:
+specs, steps, solvers and tolerances.  The split's chunks roll out in
+lockstep (``mesh.run_lockstep``), so they take the oracle's batch-global
+decisions:
 
 1. ``run_sweep``: gait x phase x disturbance frequency x terrain (16 n
    instances), 16 periods of condensed ADMM-30 at h = 10 with map-aware
@@ -159,7 +161,8 @@ def tier3(n: int, mesh, backend: str) -> dict:
     pos_o = go(plant, ctrl, cmd, G.preset("trotting", device=device))
     chunks = mesh_lib.shard_batch((plant, ctrl, cmd), mesh, fsb)
     gaits = mesh_lib.replicated(G.preset("trotting", device=device), mesh)
-    pos_s = mesh_lib.gather([go(*c, g) for c, g in zip(chunks, gaits)], device)
+    pos_s = mesh_lib.gather(mesh_lib.run_lockstep(
+        lambda c: go(*c[0], c[1]), list(zip(chunks, gaits)), mesh), device)
     _require(bool(torch.isfinite(pos_s).all()), "non-finite full stack (split)")
     np.testing.assert_allclose(_np(pos_s), _np(pos_o), atol=FS_ATOL, rtol=RTOL)
     r = {"batch": fsb, "zmean": float(pos_s[..., 2].mean()),

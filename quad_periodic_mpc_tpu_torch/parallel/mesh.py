@@ -4,8 +4,12 @@
 The reference shards the instance batch over a 1-D device mesh and lets
 XLA's SPMD partitioner run one global program.  Here a ``Mesh`` is a list
 of devices (the same device may appear more than once), ``shard_batch``
-cuts the batch into one chunk per entry, each chunk runs on its entry's
-device, and ``gather`` puts the per-instance results back in global order.
+cuts the batch into one chunk per entry, ``run_lockstep`` runs the chunks at
+once, one thread per entry on its entry's device and a stream of its own,
+and ``gather`` puts the per-instance results back in global order.  The
+threads form a ``batch_group``, through which the decisions that the
+reference takes over its global batch (the Newton-Schulz inverses') are
+taken over every chunk: a split run is the unsplit program.
 
 Splitting a leaf changes what each chunk computes, so only the leaves whose
 leading axis is the batch are split, the batch size being passed
@@ -16,9 +20,12 @@ whose leading axis happens to equal the batch goes through ``replicated``.
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+import threading
+from typing import Any, Callable, NamedTuple
 
 import torch
+
+from quad_periodic_mpc_tpu_torch.parallel import batch_group
 
 
 class Mesh(NamedTuple):
@@ -97,3 +104,53 @@ def round_up_batch(n: int, mesh: Mesh) -> int:
     """Pad a batch size to a multiple of the mesh size."""
     m = mesh.size
     return ((n + m - 1) // m) * m
+
+
+def run_lockstep(fn: Callable, chunks: list, mesh: Mesh,
+                 group: batch_group.Threads | None = None) -> list:
+    """[fn(chunk) for each chunk], chunk i on mesh.devices[i], in lockstep:
+    one thread per chunk, member i of ``group`` (default: a
+    ``batch_group.Threads`` of the chunks; one chunk and no group runs in
+    the calling thread), the threads taking turns between the group's
+    exchanges.  On a CUDA entry the thread makes its device current and
+    runs on a stream of its own, which first waits for the caller's stream
+    and is synchronised before the thread ends.  A raise in any chunk breaks
+    the group, so the others raise too; the first raise that is not the
+    group's is re-raised here."""
+    if len(chunks) != mesh.size:
+        raise ValueError(f"run_lockstep: {len(chunks)} chunks for {mesh.size} entries")
+    if group is None:
+        if mesh.size == 1:
+            return [fn(chunks[0])]
+        group = batch_group.Threads(mesh.size)
+    callers = {d: torch.cuda.current_stream(d) for d in set(mesh.devices) if d.type == "cuda"}
+    results: list = [None] * mesh.size
+    errors: list = [None] * mesh.size
+
+    def work(i: int) -> None:
+        device = mesh.devices[i]
+        try:
+            with batch_group.joined(group, i):
+                if device.type != "cuda":
+                    results[i] = fn(chunks[i])
+                    return
+                torch.cuda.set_device(device)
+                stream = torch.cuda.Stream(device)
+                stream.wait_stream(callers[device])
+                with torch.cuda.stream(stream):
+                    results[i] = fn(chunks[i])
+            stream.synchronize()
+        except BaseException as e:      # re-raised in the calling thread
+            errors[i] = e
+
+    threads = [threading.Thread(target=work, args=(i,), name=f"lockstep-{i}")
+               for i in range(mesh.size)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    raised = [e for e in errors if e is not None]
+    if raised:
+        first = [e for e in raised if not isinstance(e, batch_group.GroupError)]
+        raise (first or raised)[0]
+    return results

@@ -3,12 +3,13 @@
 
 Weak scaling: fix the per-device instance count, run the same batched step
 on meshes of 1, 2, ..., N entries, and report throughput_k / (k *
-throughput_1).  The chunks of a mesh run one after another from one host
-thread: a mesh is a device for checking that a split run equals the
-unsplit one, not a speed path, and ``measure_weak_scaling`` over it gives
-1 / k by construction.  It keeps the reference's interface; the
-measurement across processes is ``parallel.dist_check --weak-scaling``
-(rank 0 alone against all ranks at once).
+throughput_1).  The chunks of a mesh run in lockstep (``mesh.run_lockstep``:
+their threads take turns on the host, so the batch-global decisions are
+the unsplit program's), and one process issues every chunk's work: on
+one card ``measure_weak_scaling`` over a mesh gives about 1 / k.  It keeps
+the reference's interface; the measurement across processes is
+``parallel.dist_check --weak-scaling`` (rank 0 alone against all ranks at
+once).
 """
 
 from __future__ import annotations
@@ -66,7 +67,7 @@ def measure_weak_scaling(
         chunks = mesh_lib.shard_batch(make_inputs(batch), mesh, batch)
 
         def run():
-            return [step(*c) for c in chunks]
+            return mesh_lib.run_lockstep(lambda c: step(*c), chunks, mesh)
 
         run()
         fence(mesh)

@@ -10,8 +10,8 @@ The BASELINE.json scaling configs as harnesses:
   (``mesh``) or ranks (``dist_check``).
 
 A sweep = (scenario axes -> batched closed-loop rollout of each chunk on
-its device -> per-instance metrics -> gathered in global order -> mean and
-argmin over the whole batch).
+its device, the chunks in lockstep -> per-instance metrics -> gathered in
+global order -> mean and argmin over the whole batch).
 """
 
 from __future__ import annotations
@@ -209,19 +209,21 @@ def run_sweep(
     device="cuda",
 ) -> SweepResult:
     """Roll out every scenario in lockstep.  With a mesh the batch is split
-    over its entries, each chunk rolled out on its entry's device in turn,
-    and the metrics gathered on the first entry's device; mesh=None is one
-    chunk on ``device``.  The chunks run one after another from this host
-    thread, so a mesh checks that a split run equals the unsplit one and is
-    never faster: one chunk on one card is the speed path, and the ranks of
-    ``parallel.dist_check`` the multi-card one."""
+    over its entries, the chunks rolled out at once (``mesh.run_lockstep``:
+    a thread per entry on its entry's device, the batch-global decisions
+    taken over every chunk), and the metrics gathered on the first entry's
+    device; mesh=None is one chunk on ``device``.  A split run is the
+    unsplit program: on the CPU it gives the unsplit run's bits."""
     if mesh is None:
         mesh = mesh_lib.make_mesh(devices=[device])
-    metrics = []
-    for chunk in build_chunks(spec, mesh, mpc_cfg, est_cfg, solver, dtype):
+
+    def metrics(chunk: SweepChunk):
         _, trace = rollout_chunk(n_mpc_steps, chunk, mpc_cfg, loop_cfg, est_cfg, solver)
-        metrics.append(tracking_metrics(trace, chunk.cmd, chunk.terrain))
-    vx_rms, height_rms = mesh_lib.gather(metrics, mesh.devices[0])
+        return tracking_metrics(trace, chunk.cmd, chunk.terrain)
+
+    chunks = build_chunks(spec, mesh, mpc_cfg, est_cfg, solver, dtype)
+    vx_rms, height_rms = mesh_lib.gather(mesh_lib.run_lockstep(metrics, chunks, mesh),
+                                         mesh.devices[0])
     return SweepResult(
         vx_rms=vx_rms, height_rms=height_rms, mean_vx_rms=torch.mean(vx_rms),
         best_instance=torch.argmin(vx_rms), batch=spec.size)

@@ -11,11 +11,17 @@ first run of a step (a graph's warm-up) fills the cache, so a capture
 finds every constant made.
 
 A cached constant is shared by every caller: nothing may write into it.
+Nor may any read it before its copy is complete: the main thread's streams
+are ordered before a lockstep thread's (``mesh.run_lockstep``), and a
+lockstep thread, whose stream no other thread waits for, finishes its copy
+before it shares the constant.
 Values that a retune changes (``TunableParams``, maps) are tensors the
 caller owns and are never routed through here.
 """
 
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
@@ -40,6 +46,9 @@ def const(value, dtype=None, device=None) -> torch.Tensor:
             f"constant {a.tolist()!r} ({dtype}) first asked for during a CUDA graph "
             "capture: run the step once before capturing it")
     host = torch.as_tensor(value, dtype=dtype).clone()      # never numpy's memory
-    t = host.pin_memory().to(device, non_blocking=True) if device.type == "cuda" \
-        else host.to(device)
+    if device.type != "cuda":
+        return _cache.setdefault(key, host.to(device))
+    t = host.pin_memory().to(device, non_blocking=True)
+    if threading.current_thread() is not threading.main_thread():
+        torch.cuda.current_stream(device).synchronize()
     return _cache.setdefault(key, t)

@@ -161,20 +161,36 @@ def _spd_batch(seed, B, n):
     return K, np.linalg.inv(K.astype(np.float64))
 
 
-@pytest.mark.parametrize("case", ["mixed", "all_bad", "indefinite"])
+@pytest.mark.parametrize("case", ["mixed", "all_bad", "indefinite", "tied", "nan"])
 def test_ns_inverse_bucket_matches_jax(case):
     """The seeds of the reference's test_linalg bucket tests (warm majority
     with four jumped seeds; all-zero seeds, which take the whole-batch
-    branch; an indefinite seed, which the rescue restarts cold), float32:
-    the reference's residual gate 5e-3, and the inverse itself to 1e-5
-    against JAX's (entries ~0.2; the seeds' residuals are distinct, so both
-    top-k pick the same instances and only f32 roundoff remains)."""
+    branch; an indefinite seed, which the rescue restarts cold), and two
+    where the top k is decided by its order: instances 1-6 share one K and
+    one contractive seed (K^-1 x 1.4), instances 9 and 12 are jumped (x 7),
+    so k = 4 takes 9, 12 and two of six equal residuals, lax.top_k's
+    lower-index pair 1, 2 ("tied"); and the same with instance 5's seed all
+    NaN, which lax.top_k puts first ("nan").  float32: the reference's
+    residual gate 5e-3 on its cases (the four tied instances left out of
+    the bucket keep their one warm round's residual 0.4^2 = 0.16, in both
+    packages), and the inverse itself to 1e-5 against JAX's (entries ~0.2;
+    the same instances escalate, so only f32 roundoff remains; another pair
+    of the tied six would differ by ~1.6e-2)."""
     if case == "indefinite":
         K, K_inv = _spd_batch(5, 16, 24)
         X0 = np.array(K_inv, np.float32)
         Rm = np.eye(24)
         Rm[0, 0] = -1.0
         X0[0] = (Rm @ K_inv[0]).astype(np.float32)
+        kw = dict(warm_iters=1, cold_iters=14)
+    elif case in ("tied", "nan"):
+        K, K_inv = _spd_batch(2, 16, 24)
+        K[1:7], K_inv[1:7] = K[1], K_inv[1]
+        X0 = np.array(K_inv, np.float32)
+        X0[1:7] = np.float32(1.4) * X0[1]
+        X0[[9, 12]] *= 7.0
+        if case == "nan":
+            X0[5] = np.nan
         kw = dict(warm_iters=1, cold_iters=14)
     else:
         K, K_inv = _spd_batch(2, 32, 24)
@@ -188,7 +204,9 @@ def test_ns_inverse_bucket_matches_jax(case):
     X_t = t_linalg.ns_inverse_bucket(torch.as_tensor(K), torch.as_tensor(X0), **kw)
     X_j = j_linalg.ns_inverse_bucket(jnp.asarray(K), jnp.asarray(X0), **kw)
     r = np.abs(X_t.numpy() @ K - np.eye(24)).max(axis=(-2, -1))
-    assert np.isfinite(r).all() and r.max() < 5e-3
+    assert np.isfinite(r).all()
+    if case not in ("tied", "nan"):
+        assert r.max() < 5e-3
     _close(X_t, X_j, 1e-5)
 
 

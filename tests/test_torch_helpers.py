@@ -92,6 +92,7 @@ def test_import_leaves_jax_out():
         "slice10 = ['runtime.graphs', 'utils.consts']\n"
         "missing = [m for m in slice10 if p.__name__ + '.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
+        "assert p.__name__ + '.parallel.batch_group' in sys.modules\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
@@ -102,9 +103,9 @@ def test_import_leaves_jax_out():
     # cmpc_variant), slice 8's (the FSM and its controllers, the gait
     # scheduler, utils.filters) and slice 9's (the CLI and __main__, whose
     # import runs nothing, the runtime bridge, the utilities, the fixtures
-    # and the golden solves) and slice 10's (the CUDA graphs, the constant
-    # cache) included
-    assert int(out.stdout.strip()) >= 84
+    # and the golden solves), slice 10's (the CUDA graphs, the constant
+    # cache) and slice 11's (the batch group) included
+    assert int(out.stdout.strip()) >= 85
 
 
 @pytest.mark.parametrize("name", [
