@@ -241,6 +241,28 @@ result line) when it fails:
    not gated), the first 4 periods equal to rollout_articulated bit for
    bit.  A graph's first two calls run eagerly (its warm-up; they launch
    and count), the third captures.
+20. the evidence tools (quad_periodic_mpc_tpu_torch/tools, slice 12): (a)
+   parity_table on the card: 15 scenes (h = 10 / 16 / 19; trot, bound, pace,
+   gallop; two with a disturbance estimate; six plant-stepped B = 1 walking
+   sequences of 12 condensed mpc_steps through fused_admm_iterations with
+   the "faithful" estimator) x 6 float32 solver settings (ADMM-400 cold and
+   ADMM-30 warm x6 on the "xla" loop, the production setting warm x6 through
+   fused_admm_iterations, PDIP-40, PDIP-40 spd, the stagewise ADMM-400 on its
+   scan path) against qpOASES in float64 on the host: each cell under the
+   golden gate or within 4/3 of JAX's float32 gap (EVIDENCE_GAPS; on the
+   three cells of EVIDENCE_SPREAD, of the largest of its gap and its
+   rounding draws), JAX's own misses (>= 1 N) missed too by PDIP and within
+   2 % of JAX's by ADMM (the walking tails), the walking scenes' applied
+   first step within 2 % of JAX's; exactly
+   9 x 6 + 6 x 12 = 126 fused_admm_iterations launches and no other; the
+   table and the walking split printed; (b) estimator_ab at the JAX tool's
+   grid (72 instances) and window AB_WINDOW (2 x AB_WINDOW periods an arm,
+   run_sweep's condensed ADMM-100 on the "xla" loop), its four arms side by
+   side in spawned processes: the arms' order in mean vx RMS JAX's on the
+   CPU (EVIDENCE_AB), "ls" against "off" under AB_RATIO, each arm's mean
+   within AB_REL of JAX's; ms a period for each arm, and the busy share and
+   launches of a profiled period; (c) the "xla" ADMM loop and the stagewise
+   scan path alone: ms and launches an iteration.  20 prints its seconds.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 object per kernel with its times and bound, and
@@ -544,6 +566,153 @@ QUEUE_SLEEP_CYCLES = 200_000_000     # ~0.1 s at the H100's clock: longer than 2
 # H100 SXM: HBM3 rate and float32 (non-tensor-core) peak, NVIDIA data sheet
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+# slice 12: the evidence tools, phase 20.  20a: 18f's golden gate per
+# setting, else 4/3 of JAX's float32 gap on the cell.  A cell where JAX
+# misses by EVIDENCE_JAX_MISS N or more: a PDIP one (a lost float32 solve,
+# 20-80 N from draw to draw) is held to miss by EVIDENCE_MISS N or more;
+# an ADMM one (the loop stops short of its fixed point: the walking scenes'
+# production tails and the h = 16 f_est warm cells) within EVIDENCE_REL of
+# JAX's gap, as is each walking scene's applied first step (the H100 gave
+# both within 0.3 % of JAX's).  The issue's wider gates (a tail missing by
+# 0.1 N, a first step within EVIDENCE_FIRST_STEP x JAX's) are printed too.
+# The production setting's six solves on each of the 9 still scenes and
+# the 12 walking steps of each of the 6 walking scenes launch the fused
+# ADMM kernel, nothing else does
+EVIDENCE_ATOL = {"ADMM-400 cold": GOLDEN_ATOL["admm"], "ADMM-30 warm x6": GOLDEN_ATOL["admm"],
+                 "production warm x6": GOLDEN_ATOL["admm"], "PDIP-40": GOLDEN_ATOL["pdip"],
+                 "PDIP-40 spd": GOLDEN_ATOL["pdip"],
+                 "stagewise ADMM-400": GOLDEN_ATOL["stagewise"]}
+EVIDENCE_JAX_MISS, EVIDENCE_MISS, EVIDENCE_REL, EVIDENCE_FIRST_STEP = 1.0, 0.1, 0.02, 2.0
+# the cells held to 4/3 of the largest of JAX's gap and its 16 rounding draws
+# rather than of its one gap: on the H100 each misses 4/3 of JAX's own gap
+# within JAX's spread (h = 19 ADMM-400 0.0129 N against 0.0084, draws to
+# 0.0193; seed-6 f_est PDIP-40 0.0536 against 0.0267, draws to 0.270, and its
+# PDIP-40 spd 0.0324 against 0.0050, draws to 0.0512).  All three take the
+# "xla" ADMM loop or PDIP, no hand-written kernel
+EVIDENCE_SPREAD = {("h=19 seed=7 seg=3", "ADMM-400 cold"),
+                   ("h=10 seed=6 seg=1 f_est", "PDIP-40"),
+                   ("h=10 seed=6 seg=1 f_est", "PDIP-40 spd")}
+EVIDENCE_LAUNCHES = 9 * 6 + 6 * 12
+# JAX's figures on the CPU, float32 (tools/slice12_reference.py --part parity): per
+# scene and setting [its gap, the largest over its 16 rounding draws] (N); the
+# walking scenes' production cell and applied first step [its gap]
+EVIDENCE_GAPS = {
+    "h=10 seed=3 seg=0": {
+        "ADMM-400 cold": [0.000801729, 0.00119083], "ADMM-30 warm x6": [0.00269933, 0.00294729],
+        "production warm x6": [0.00260492, 0.00293203], "PDIP-40": [0.000295347, 0.000612682],
+        "PDIP-40 spd": [35.6603, 86.8514], "stagewise ADMM-400": [0.000496385, 0.000572679],
+    },
+    "h=10 seed=11 seg=2": {
+        "ADMM-400 cold": [0.00068454, 0.000974457], "ADMM-30 warm x6": [0.00148409, 0.00163002],
+        "production warm x6": [0.00144547, 0.00154658], "PDIP-40": [9.81628e-05, 0.000319198],
+        "PDIP-40 spd": [19.9096, 61.6653], "stagewise ADMM-400": [0.000232354, 0.000409882],
+    },
+    "h=16 seed=5 seg=5": {
+        "ADMM-400 cold": [0.0038498, 0.00569611], "ADMM-30 warm x6": [0.00211805, 0.00380714],
+        "production warm x6": [0.0019806, 0.0030269], "PDIP-40": [0.000989655, 0.00178034],
+        "PDIP-40 spd": [64.1559, 64.7967], "stagewise ADMM-400": [0.000651542, 0.000679679],
+    },
+    "h=19 seed=7 seg=3": {
+        "ADMM-400 cold": [0.00843941, 0.019256], "ADMM-30 warm x6": [0.00335295, 0.00466129],
+        "production warm x6": [0.00350792, 0.00455149], "PDIP-40": [0.00176917, 0.00277597],
+        "PDIP-40 spd": [72.0554, 72.276], "stagewise ADMM-400": [0.000723973, 0.000879666],
+    },
+    "h=16 seed=9 seg=1 bounding": {
+        "ADMM-400 cold": [0.00336656, 0.00461317], "ADMM-30 warm x6": [0.00446054, 0.00506421],
+        "production warm x6": [0.00457447, 0.005598], "PDIP-40": [0.000554777, 0.00263754],
+        "PDIP-40 spd": [78.0625, 74.3394], "stagewise ADMM-400": [0.000613547, 0.000647414],
+    },
+    "h=10 seed=13 seg=4 pacing": {
+        "ADMM-400 cold": [0.000650398, 0.00121193], "ADMM-30 warm x6": [0.00139504, 0.00196152],
+        "production warm x6": [0.00152569, 0.00199585], "PDIP-40": [0.000723651, 0.00119896],
+        "PDIP-40 spd": [0.0036251, 0.00247841], "stagewise ADMM-400": [0.000372699, 0.000578693],
+    },
+    "h=10 seed=2 seg=0 galloping": {
+        "ADMM-400 cold": [0.000579661, 0.00102203], "ADMM-30 warm x6": [0.00542114, 0.00558755],
+        "production warm x6": [0.00531111, 0.00551364], "PDIP-40": [0.000185747, 0.000574492],
+        "PDIP-40 spd": [0.000118274, 0.0099638],
+        "stagewise ADMM-400": [0.000289609, 0.000388906],
+    },
+    "h=16 seed=4 seg=2 f_est": {
+        "ADMM-400 cold": [0.0158756, 0.0160454], "ADMM-30 warm x6": [1.97898, 1.97908],
+        "production warm x6": [1.97897, 1.97922], "PDIP-40": [0.529746, 0.634167],
+        "PDIP-40 spd": [0.630301, 1.17456], "stagewise ADMM-400": [0.0158132, 0.0159729],
+    },
+    "h=10 seed=6 seg=1 f_est": {
+        "ADMM-400 cold": [0.00015275, 0.000218554],
+        "ADMM-30 warm x6": [5.34169e-05, 0.000104915],
+        "production warm x6": [7.34677e-05, 0.000139248], "PDIP-40": [0.0266874, 0.269793],
+        "PDIP-40 spd": [0.00496834, 0.0511872], "stagewise ADMM-400": [3.43434e-05, 0.00018964],
+    },
+    "h=10 walking x12 trott vx=0.3 (prod warm)": {
+        "ADMM-400 cold": [0.000621034, 0.000979198],
+        "ADMM-30 warm x6": [0.000521435, 0.000685467], "production warm x6": [1.48312],
+        "_walk_first_step": [0.189582], "PDIP-40": [5.00116e-05, 0.000196907],
+        "PDIP-40 spd": [6.52704e-05, 0.000214228],
+    },
+    "h=10 walking x12 trott vx=0.8 (prod warm)": {
+        "ADMM-400 cold": [0.000605876, 0.000781352], "ADMM-30 warm x6": [0.00151656, 0.0015978],
+        "production warm x6": [2.25504], "_walk_first_step": [0.331807],
+        "PDIP-40": [4.08598e-05, 0.000199115], "PDIP-40 spd": [3.88944e-05, 0.000227462],
+    },
+    "h=10 walking x12 bound vx=0.3 (prod warm)": {
+        "ADMM-400 cold": [0.000356954, 0.000479822], "ADMM-30 warm x6": [0.00281115, 0.00289508],
+        "production warm x6": [2.47919], "_walk_first_step": [0.0157329],
+        "PDIP-40": [2.10139e-05, 8.20491e-05], "PDIP-40 spd": [2.83689e-05, 5.54645e-05],
+    },
+    "h=10 walking x12 bound vx=0.8 (prod warm)": {
+        "ADMM-400 cold": [0.000207777, 0.000242454], "ADMM-30 warm x6": [0.00712775, 0.00722967],
+        "production warm x6": [1.46606], "_walk_first_step": [0.00571303],
+        "PDIP-40": [2.11049e-05, 5.86673e-05], "PDIP-40 spd": [9.77474e-06, 6.64772e-05],
+    },
+    "h=10 walking x12 pacin vx=0.3 (prod warm)": {
+        "ADMM-400 cold": [0.000391748, 0.00049856], "ADMM-30 warm x6": [0.00255449, 0.00256957],
+        "production warm x6": [5.86912], "_walk_first_step": [0.0222969],
+        "PDIP-40": [2.70911e-05, 0.000106227], "PDIP-40 spd": [2.60902e-05, 0.000113856],
+    },
+    "h=10 walking x12 pacin vx=0.8 (prod warm)": {
+        "ADMM-400 cold": [0.00052893, 0.000567077], "ADMM-30 warm x6": [0.00375424, 0.00377665],
+        "production warm x6": [5.7954], "_walk_first_step": [0.00888185],
+        "PDIP-40": [1.68352e-05, 0.000110444], "PDIP-40 spd": [1.72581e-05, 0.000118074],
+    },
+}
+# 20b: the A/B's window (2 x AB_WINDOW periods an arm); "ls" against "off"
+# in mean vx RMS under AB_RATIO at window 400 (PERF.md section 2's gate for the
+# paper's ratio), at another window no more than JAX's ratio + 0.05; each arm's
+# mean vx RMS within AB_REL of JAX's (the H100 gave 1e-6; the issue's gate,
+# AB_ISSUE_REL, is printed too).  EVIDENCE_AB: JAX's rows on the CPU
+# (tools/slice12_reference.py --part ab --est-window 400 128), float32
+AB_WINDOW, AB_RATIO, AB_REL, AB_ISSUE_REL = 400, 0.65, 1e-4, 0.05
+EVIDENCE_AB = {
+    "400": [
+        {"arm": "ls", "instances": 72, "vx_rms_mean": 0.06349219381809235,
+         "vx_rms_p50": 0.058289505541324615, "vx_rms_p95": 0.12471498548984528,
+         "height_rms_mean": 0.0036202864721417427},
+        {"arm": "faithful", "instances": 72, "vx_rms_mean": 0.1595727652311325,
+         "vx_rms_p50": 0.15102709829807281, "vx_rms_p95": 0.28503233194351196,
+         "height_rms_mean": 0.0036296530161052942},
+        {"arm": "static", "instances": 72, "vx_rms_mean": 0.10365072637796402,
+         "vx_rms_p50": 0.08845657110214233, "vx_rms_p95": 0.22519369423389435,
+         "height_rms_mean": 0.0037409563083201647},
+        {"arm": "off", "instances": 72, "vx_rms_mean": 0.11531586199998856,
+         "vx_rms_p50": 0.113729327917099, "vx_rms_p95": 0.19502952694892883,
+         "height_rms_mean": 0.003650940954685211},
+    ],
+    "128": [
+        {"arm": "ls", "instances": 72, "vx_rms_mean": 0.0714588314294815,
+         "vx_rms_p50": 0.06217500567436218, "vx_rms_p95": 0.1297520399093628,
+         "height_rms_mean": 0.0038833213038742542},
+        {"arm": "faithful", "instances": 72, "vx_rms_mean": 0.1088428869843483,
+         "vx_rms_p50": 0.1024768203496933, "vx_rms_p95": 0.18088845908641815,
+         "height_rms_mean": 0.003860891330987215},
+        {"arm": "static", "instances": 72, "vx_rms_mean": 0.1131465807557106,
+         "vx_rms_p50": 0.10696625709533691, "vx_rms_p95": 0.22116082906723022,
+         "height_rms_mean": 0.004000093322247267},
+        {"arm": "off", "instances": 72, "vx_rms_mean": 0.11134503781795502,
+         "vx_rms_p50": 0.10578015446662903, "vx_rms_p95": 0.187840536236763,
+         "height_rms_mean": 0.0038734774570912123},
+    ],
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -4471,6 +4640,248 @@ def slice10(device, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# slice 12: the evidence tools (phase 20)
+# ---------------------------------------------------------------------------
+
+def evidence_cell(gap: float, excess: float, ref: list, setting: str,
+                  spread: bool) -> tuple[bool, str]:
+    """20a's rule for one cell of the gap table: (held, by what).  ref is
+    JAX's [gap, largest gap over its rounding draws] on the cell (the draws
+    absent on a walking scene's production cell).  Where JAX itself misses
+    by EVIDENCE_JAX_MISS or more, a PDIP cell must miss too (by
+    EVIDENCE_MISS, or be non-finite where JAX is) and an ADMM cell lie
+    within EVIDENCE_REL of JAX's gap; elsewhere 18f's rule: the golden gate
+    (excess <= 0), or no more than 4/3 of JAX's float32 gap, of the largest
+    of its gap and its draws' on a cell of EVIDENCE_SPREAD."""
+    import math
+
+    own = ref[0]
+    if own >= EVIDENCE_JAX_MISS or not math.isfinite(own):
+        if setting.startswith("PDIP"):
+            held = gap >= EVIDENCE_MISS or (not math.isfinite(gap) and not math.isfinite(own))
+            return held, "JAX's own miss, missed too"
+        return abs(gap / own - 1.0) <= EVIDENCE_REL, f"JAX's own miss, within {EVIDENCE_REL:.0%}"
+    if excess <= 0.0:
+        return True, "gate"
+    if spread:
+        return gap <= max(ref) * 4.0 / 3.0, "4/3 JAX's draws"
+    return gap <= own * 4.0 / 3.0, "4/3 JAX"
+
+
+def evidence_table(device, card: str) -> dict:
+    """20a: the port's parity_table on the card, every scene and setting
+    held by evidence_cell; the walking scenes' applied first step within
+    EVIDENCE_REL of JAX's; the fused ADMM kernel launched exactly
+    EVIDENCE_LAUNCHES times and no other kernel.  Returns the launches."""
+    import numpy as np
+
+    from quad_periodic_mpc_tpu_torch.testing import golden
+    from quad_periodic_mpc_tpu_torch.tools import parity_table as PT
+
+    golden.load()
+    t0 = time.perf_counter()
+    reset_all_counts()
+    rows, failed, misses, wide = [], [], 0, []
+    for sc in PT.SCENES:
+        walking = bool(sc.get("walking"))
+        solves = PT.solve_scene(sc, device)
+        gaps = PT.scene_gaps(solves, walking)
+        rows.append((sc, gaps))
+        name = PT.scene_name(sc)
+        ref = EVIDENCE_GAPS[name]
+        cells = []
+        for setting, x in solves.x.items():
+            err = np.abs(x - solves.x_gold)
+            atol = EVIDENCE_ATOL[setting]
+            excess = float((err - (atol + GOLDEN_RTOL * np.abs(solves.x_gold))).max())
+            held, how = evidence_cell(gaps[setting], excess, ref[setting], setting,
+                                      (name, setting) in EVIDENCE_SPREAD)
+            misses += how.startswith("JAX's own miss")
+            cells.append(f"{setting} {gaps[setting]:.6g} (JAX {ref[setting][0]:.6g}, draws "
+                         f"{max(ref[setting]):.6g}; {how})")
+            if not held:
+                failed.append(f"{name} {setting}: {gaps[setting]:.4g} N (JAX "
+                              f"{ref[setting]}, over the gate by {excess:.3g})")
+        if walking:
+            first, jax_first = gaps["_walk_first_step"], ref["_walk_first_step"][0]
+            tail, jax_tail = gaps["production warm x6"], ref["production warm x6"][0]
+            cells.append(f"applied first step {first:.6g} (JAX {jax_first:.6g}, held within "
+                         f"{EVIDENCE_REL:.0%})")
+            if not abs(first / jax_first - 1.0) <= EVIDENCE_REL:
+                failed.append(f"{name} applied first step: {first:.6g} N (JAX {jax_first:.6g})")
+            wide.append(f"{name}: tail {tail:.6g} >= {EVIDENCE_MISS} N "
+                        f"{tail >= EVIDENCE_MISS}, first step {first / jax_first:.6f}x JAX's "
+                        f"<= {EVIDENCE_FIRST_STEP}x {first <= EVIDENCE_FIRST_STEP * jax_first}; "
+                        f"tail {tail / jax_tail:.6f}x JAX's")
+        print(f"[evidence] {name}: " + "; ".join(cells))
+    secs = time.perf_counter() - t0
+    launched = {k: v for k, v in all_launch_counts().items() if v}
+    print(f"[evidence] 20a, the gap table on the card ({len(rows)} scenes x "
+          f"{len(PT.SOLVERS)} settings, float32; qpOASES float64 on the host), on {card}:")
+    for line in PT.format_table(rows).splitlines():
+        print(f"[evidence table] {line}")
+    for line in wide:
+        print(f"[evidence] the issue's wider walking gates, {line}")
+    print(f"[evidence] 20a took {secs:.1f} s; launches {launched}; {misses} cells JAX's own "
+          f"misses (>= {EVIDENCE_JAX_MISS} N): PDIP held to miss too, ADMM within "
+          f"{EVIDENCE_REL:.0%} of JAX's")
+    check(not failed, "20a: " + "; ".join(failed))
+    # the production setting warm x6 on each of the 9 still scenes, and the
+    # walking scenes' 12 condensed mpc_steps each through the kernel; ADMM-400
+    # cold, ADMM-30 warm and the stagewise ADMM-400 take their "xla" paths
+    check(launched == {"fused_admm_iterations": EVIDENCE_LAUNCHES},
+          f"20a: launches {launched}, expected {EVIDENCE_LAUNCHES} fused_admm_iterations")
+    return launched
+
+
+def xla_loops(device, card: str) -> None:
+    """20c: the two solver loops 20a and 20b put on the card, alone: the
+    condensed ADMM's "xla" loop (qp_admm.solve) at 20a's B = 1 and 20b's B
+    = 72, h = 10 (the fixture QP of seed 3), and the stagewise ADMM's scan
+    path (qp_stagewise.solve) at B = 1 on 20a's first h = 10 and h = 19
+    scenes: ms an iteration (CUDA events around 101 iterations less 1, over
+    100; host-bound, so the host's issue) and launches an iteration (the
+    profiler over 11 iterations less 1, over 10)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from quad_periodic_mpc_tpu_torch.config import ADMMConfig
+    from quad_periodic_mpc_tpu_torch.ops import qp_admm, qp_stagewise
+    from quad_periodic_mpc_tpu_torch.testing.fixtures import make_mpc_qp
+    from quad_periodic_mpc_tpu_torch.tools import parity_table as PT
+
+    def launches(fn) -> int:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum(e.count for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0)
+
+    cases = {}
+    for B in (1, 72):
+        qp, _, _ = make_mpc_qp(horizon=10, batch=(B,) if B > 1 else (), seed=3, device=device)
+        cases[f"condensed ADMM 'xla' loop, B = {B}, h = 10"] = (
+            lambda n, qp=qp: qp_admm.solve(qp, ADMMConfig(iterations=n)))
+    for sc in (PT.SCENES[0], PT.SCENES[3]):
+        _, sw, _ = PT.scene_problems(**sc, device=device)
+        cases[f"stagewise ADMM scan path, B = 1, h = {sc['horizon']}"] = (
+            lambda n, sw=sw: qp_stagewise.solve(sw, ADMMConfig(iterations=n)))
+    for name, solve in cases.items():
+        ms = (time_ms(lambda: solve(101), 2) - time_ms(lambda: solve(1), 2)) / 100
+        per = (launches(lambda: solve(11)) - launches(lambda: solve(1))) / 10
+        print(f"[evidence] 20c, {name}: {ms:.4f} ms and {per:.1f} launches an iteration "
+              f"on {card}")
+
+
+def _ab_job(job: dict) -> dict:
+    """One arm of 20b in a process of its own: the port's estimator_ab
+    run_arm over the tool's grid at job["window"], timed, its launches read
+    in that process, then a warm and two profiled periods of a fresh chunk
+    of the same sweep (before the estimator's release)."""
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    import quad_periodic_mpc_tpu_torch  # noqa: F401  (sets the f32 policy)
+    from quad_periodic_mpc_tpu_torch.config import ADMMConfig, LoopConfig
+    from quad_periodic_mpc_tpu_torch.parallel import mesh as ML
+    from quad_periodic_mpc_tpu_torch.parallel import sweep as SW
+    from quad_periodic_mpc_tpu_torch.tools import estimator_ab as AB
+
+    device = torch.device(job["device"])
+    torch.cuda.set_device(device)
+    spec, window = AB.grid(), job["window"]
+    _sync(device)
+    reset_all_counts()
+    t0 = time.perf_counter()
+    row = AB.run_arm(job["arm"], spec, window, device=device)
+    _sync(device)
+    secs = time.perf_counter() - t0
+    launches = {k: v for k, v in all_launch_counts().items() if v}
+
+    est_cfg = AB.arm_config(job["arm"], window)
+    cfg = (SW.DEFAULT_MPC, LoopConfig(), est_cfg, ADMMConfig(iterations=100))
+    (chunk,) = SW.build_chunks(spec, ML.make_mesh(devices=[device]), SW.DEFAULT_MPC, est_cfg,
+                               cfg[-1], torch.float32)
+
+    def step(ctrl, plant):
+        carry, _ = SW.rollout_chunk(1, chunk._replace(plant=plant, ctrl=ctrl), *cfg)
+        return carry.ctrl, carry.plant
+
+    ctrl, plant = step(chunk.ctrl, chunk.plant)
+    prof = profile_periods(step, ctrl, plant, n=2) or {}
+    return {"row": row, "secs": secs, "periods": 2 * window, "launches": launches,
+            "prof": prof}
+
+
+def evidence_ab(device, card: str, window: int = AB_WINDOW) -> dict:
+    """20b: the port's estimator_ab at the JAX tool's grid (72 instances),
+    window ``window`` (2 x window periods an arm), its four arms side by side
+    in spawned processes (each period is host-bound); held to JAX's CPU run
+    at the same window (EVIDENCE_AB): the order of the arms in mean vx RMS,
+    "ls" against "off" under AB_RATIO, each arm's mean within AB_REL of
+    JAX's.  Returns the launches (none: the sweep's ADMM-100 is the "xla"
+    loop)."""
+    import multiprocessing
+
+    from quad_periodic_mpc_tpu_torch.tools import estimator_ab as AB
+
+    t0 = time.perf_counter()
+    jobs = [{"device": str(device), "arm": arm, "window": window} for arm in AB.ARMS]
+    with concurrent.futures.ProcessPoolExecutor(
+            len(jobs), mp_context=multiprocessing.get_context("spawn")) as pool:
+        out = dict(zip(AB.ARMS, pool.map(_ab_job, jobs)))
+    secs = time.perf_counter() - t0
+    rows = [out[arm]["row"] for arm in AB.ARMS]
+    ref = {r["arm"]: r for r in EVIDENCE_AB[str(window)]}
+    print(f"[evidence] 20b, the estimator A/B on the card (window {window}, "
+          f"{rows[0]['instances']} instances, {2 * window} periods an arm, the four arms side by "
+          f"side), on {card}:")
+    for line in AB.format_table(rows, window).splitlines():
+        print(f"[evidence ab] {line}")
+    launches = {}
+    for arm in AB.ARMS:
+        o, p = out[arm], out[arm]["prof"]
+        busy = f"{100 * p['device_ms'] / p['wall_ms']:.1f} %" if p else "not measured"
+        print(f"[evidence ab] {arm}: {1e3 * o['secs'] / o['periods']:.2f} ms a period over "
+              f"{o['periods']} periods with the set-up ({o['secs']:.1f} s); one profiled period "
+              f"(before release): {p.get('wall_ms', float('nan')):.2f} ms wall, "
+              f"{p.get('device_ms', float('nan')):.2f} ms device, busy {busy}, "
+              f"{p.get('launches')} launches; mean vx RMS {o['row']['vx_rms_mean']:.5f} (JAX CPU "
+              f"{ref[arm]['vx_rms_mean']:.5f})")
+        _add(launches, o["launches"])
+    by_mean = sorted(AB.ARMS, key=lambda a: out[a]["row"]["vx_rms_mean"])
+    jax_order = sorted(AB.ARMS, key=lambda a: ref[a]["vx_rms_mean"])
+    ratio = out["ls"]["row"]["vx_rms_mean"] / out["off"]["row"]["vx_rms_mean"]
+    jax_ratio = ref["ls"]["vx_rms_mean"] / ref["off"]["vx_rms_mean"]
+    gate = AB_RATIO if window == 400 else jax_ratio + 0.05
+    rel = {a: out[a]["row"]["vx_rms_mean"] / ref[a]["vx_rms_mean"] - 1.0 for a in AB.ARMS}
+    print(f"[evidence ab] order {' < '.join(by_mean)} (JAX CPU {' < '.join(jax_order)}); ls vs "
+          f"off {ratio:.4f} (JAX CPU {jax_ratio:.4f}, gate {gate:.4f}); mean vx RMS against JAX "
+          f"{ {a: float(f'{v:+.3e}') for a, v in rel.items()} } (gate +-{AB_REL}; the issue's "
+          f"+-{AB_ISSUE_REL}: {all(abs(v) <= AB_ISSUE_REL for v in rel.values())}); 20b took "
+          f"{secs:.1f} s, launches {launches}")
+    check(by_mean == jax_order, f"20b: the arms' order {by_mean}, JAX's {jax_order}")
+    check(ratio <= gate, f"20b: ls vs off {ratio} over {gate}")
+    check(all(abs(v) <= AB_REL for v in rel.values()), f"20b: against JAX {rel}")
+    check(not launches, f"20b: the sweep's 'xla' ADMM launched {launches}")
+    return launches
+
+
+def slice12(device, card: str) -> dict:
+    """Phase 20.  Returns the launches by kernel of 20a."""
+    t0 = time.perf_counter()
+    launched = evidence_table(device, card)
+    t = time.perf_counter()
+    evidence_ab(device, card)
+    t_c = time.perf_counter()
+    xla_loops(device, card)
+    print(f"[evidence] phase 20 took {time.perf_counter() - t0:.1f} s (20a {t - t0:.1f}, 20b "
+          f"{t_c - t:.1f}, 20c {time.perf_counter() - t_c:.1f}) on {card}")
+    return launched
+
+
 def slice5(device, card: str) -> dict:
     """Phases 11-13.  Returns the launches of their counted runs, by path
     and kernel."""
@@ -4572,6 +4983,8 @@ def main() -> int:
             check(graphed.get(name, 0) > 0, f"{name} was launched no time on the graphs path")
         for name, n in graphed.items():
             by_name[name].setdefault("launches_by_path", {})["graphs"] = n
+        for name, n in slice12(device, card).items():
+            by_name[name].setdefault("launches_by_path", {})["evidence"] = n
         if "jax" in sys.modules or "quad_periodic_mpc_tpu" in sys.modules:
             raise SmokeFailure("JAX or the JAX package was imported")
     except SmokeFailure as e:

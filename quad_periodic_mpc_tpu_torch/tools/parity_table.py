@@ -1,0 +1,348 @@
+"""Quantified force-gap table against the reference's compiled qpOASES
+(counterpart of the JAX package's ``tools/parity_table.py``).
+
+    python -m quad_periodic_mpc_tpu_torch.tools.parity_table [--cpu] [--update]
+
+For every golden scene and every solver setting, the largest |f -
+f_qpOASES| in Newtons of a float32 solve on the chosen device against the
+reference's qpOASES (float64 on the host, ``testing/golden.py``):
+
+- 15 scenes: h = 10 / 16 / 19 (the reference's cap, SolverMPC.cpp:113),
+  trot, bound, pace and gallop segments, two scenes with a disturbance
+  estimate fed through the Q_d augmentation (``F_EST_ACTIVE``,
+  SolverMPC.cpp:810), and six plant-stepped walking sequences, B = 1,
+  warm-carried through ``mpc_step`` with the "faithful" estimator;
+- 6 settings: ADMM-400 cold, ADMM-30 warm x6 (both the "xla" loop), the
+  production setting warm x6 (the fused ADMM kernel, ``ns_inverse_bucket``,
+  uniform rho), PDIP-40, PDIP-40 with ``kkt="spd"`` and the stagewise
+  ADMM-400 (its "xla" scan path);
+- the walking scenes' gap split into the applied first step and the
+  horizon tail, with the objective excess.
+
+The scenes' draws are the JAX tool's, from ``np.random.default_rng(seed)``
+in the same order.  Runs on the CUDA card unless given ``--cpu``;
+``--update`` rewrites the block between this tool's markers in PERF.md
+with the tables (without the JAX tool's reading of them), otherwise prints
+the table as the JAX tool does.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from quad_periodic_mpc_tpu_torch.config import (
+    ADMMConfig, EstimatorConfig, LoopConfig, MPCConfig, PDIPConfig,
+)
+from quad_periodic_mpc_tpu_torch.ops import qp_admm, qp_pdip, qp_stagewise
+from quad_periodic_mpc_tpu_torch.testing import golden
+from quad_periodic_mpc_tpu_torch.tools import device_line, pick_device, write_block
+
+BEGIN = "<!-- AUTOGEN:parity-gap-table (quad_periodic_mpc_tpu_torch/tools/parity_table.py) -->"
+END = "<!-- /AUTOGEN:parity-gap-table -->"
+COMMAND = "python -m quad_periodic_mpc_tpu_torch.tools.parity_table --update"
+
+F_EST_ACTIVE = (-2.0, 1.0, 3.0, -10.0, 4.0, 15.0)  # [tau; f] wrench, N/Nm
+
+SCENES = [
+    dict(horizon=10, seed=3, segment=0, gait="trotting"),
+    dict(horizon=10, seed=11, segment=2, gait="trotting"),
+    dict(horizon=16, seed=5, segment=5, gait="trotting"),
+    dict(horizon=19, seed=7, segment=3, gait="trotting"),
+    dict(horizon=16, seed=9, segment=1, gait="bounding"),
+    dict(horizon=10, seed=13, segment=4, gait="pacing"),
+    dict(horizon=10, seed=2, segment=0, gait="galloping"),
+    dict(horizon=16, seed=4, segment=2, gait="trotting", f_est=F_EST_ACTIVE),
+    dict(horizon=10, seed=6, segment=1, gait="trotting", f_est=F_EST_ACTIVE),
+    # the warm-carried production solve across gaits x speeds, all with the
+    # disturbance active
+    dict(walking=True, horizon=10, steps=12),
+    dict(walking=True, horizon=10, steps=12, gait="trotting", vx=0.8),
+    dict(walking=True, horizon=10, steps=12, gait="bounding", vx=0.3),
+    dict(walking=True, horizon=10, steps=12, gait="bounding", vx=0.8),
+    dict(walking=True, horizon=10, steps=12, gait="pacing", vx=0.3),
+    dict(walking=True, horizon=10, steps=12, gait="pacing", vx=0.8),
+]
+
+SOLVERS = [
+    "ADMM-400 cold", "ADMM-30 warm x6", "production warm x6",
+    "PDIP-40", "PDIP-40 spd", "stagewise ADMM-400",
+]
+
+
+def scene_problems(horizon, seed, segment, gait="trotting", f_est=None, device="cuda"):
+    """Condensed QP + matching stagewise problem from ONE random
+    observation, float32 on ``device``.  Returns (qp, sw, cfg)."""
+    from quad_periodic_mpc_tpu_torch.ops import gait as gait_ops
+    from quad_periodic_mpc_tpu_torch.ops import problem
+    from quad_periodic_mpc_tpu_torch.ops.rotations import rpy_to_quat
+
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32, device=device)
+    rng = np.random.default_rng(seed)
+    cfg = MPCConfig(horizon=horizon)
+    rpy = rng.uniform(-0.1, 0.1, (3,))
+    hips = np.array(
+        [[0.18, -0.13, -0.26], [0.18, 0.13, -0.26],
+         [-0.18, -0.13, -0.26], [-0.18, 0.13, -0.26]]
+    )
+    r_feet = hips + rng.uniform(-0.03, 0.03, (4, 3))
+    obs = problem.RobotObs(
+        p=t(np.array([0, 0, 0.26])),
+        v=t(rng.uniform(-0.3, 0.3, (3,))),
+        quat=rpy_to_quat(t(rpy)),
+        omega=t(rng.uniform(-0.2, 0.2, (3,))),
+        r_feet=t(r_feet),
+    )
+    xref = np.zeros((horizon, 13))
+    xref[..., 5] = 0.26
+    table = gait_ops.mpc_table(gait_ops.preset(gait, device=device),
+                               torch.tensor(segment, dtype=torch.int32, device=device), horizon)
+    fe = None if f_est is None else t(f_est)
+    qp, _, _ = problem.build_qp(obs, t(xref), table, cfg, f_est=fe)
+    sw, _ = problem.build_stagewise(obs, t(xref), table, cfg, f_est=fe)
+    return qp, sw, cfg
+
+
+def walking_scene(horizon, steps, gait="trotting", vx=0.3, device="cuda"):
+    """Plant-stepped walking sequence (the bench's methodology, B = 1): the
+    production warm-carried setting through ``steps`` MPC steps on the
+    drifting SRB plant under the reference's sinusoidal disturbance.
+    Returns (the final step's QP, the production solution at that step,
+    cfg)."""
+    from quad_periodic_mpc_tpu_torch.control import mpc as M
+    from quad_periodic_mpc_tpu_torch.models.a1 import A1
+    from quad_periodic_mpc_tpu_torch.ops import gait as G
+    from quad_periodic_mpc_tpu_torch.ops.rotations import quat_to_rotmat
+    from quad_periodic_mpc_tpu_torch.sim import srb_sim as S
+
+    dtype = torch.float32
+    B = (1,)
+    mpc_cfg = MPCConfig(horizon=horizon)
+    loop_cfg = LoopConfig()
+    est_cfg = EstimatorConfig(mode="faithful", residual="reference")
+    solver = ADMMConfig(iterations=30, backend="pallas")
+    dt_mpc = loop_cfg.dt_mpc
+    hips = torch.as_tensor(A1.hip_locations(), dtype=dtype, device=device)
+    full = lambda v: torch.full(B, v, dtype=dtype, device=device)
+
+    plant = S.init_plant(B, body_height=0.29, dtype=dtype, device=device)
+    obs = S.observe(plant)
+    ctrl = M.init_state(B, obs, dtype=dtype, horizon=horizon)
+    ctrl = ctrl._replace(x_vel_des=full(vx))
+    cmd = M.Command(vx=full(vx), vy=full(0.0), yaw_rate=full(0.0), body_height=full(0.29))
+    gait = G.preset(gait, device=device)
+    dist = S.DisturbanceParams.reference(B, dtype=dtype, device=device)
+
+    qp = None
+    for _ in range(steps):
+        obs = S.observe(plant)
+        ctrl = M.setup_command(ctrl, cmd, loop_cfg)
+        ctrl, forces, qp = M.mpc_step(
+            ctrl, obs, cmd, gait, plant.t, mpc_cfg, loop_cfg, est_cfg, solver, return_qp=True)
+        seg = G.segment_index(gait, ctrl.iteration, loop_cfg.iterations_between_mpc)
+        stance = G.mpc_table(gait, seg, 1)[..., 0, :].to(dtype)
+        R = quat_to_rotmat(obs.quat)
+        hip_w = obs.p[..., None, :] + torch.einsum(
+            "...ij,...kj->...ki", R, hips.expand(obs.p_feet.shape))
+        p_touch = hip_w + 0.5 * (10 * dt_mpc) * obs.v[..., None, :]
+        p_touch = torch.cat([p_touch[..., :2], torch.zeros_like(p_touch[..., 2:])], -1)
+        d = torch.clamp(p_touch - plant.p_feet, -0.04, 0.04)
+        p_feet = torch.where(stance[..., None] > 0.5, plant.p_feet, plant.p_feet + d)
+        plant = S.step(plant, forces[..., 0, :, :], p_feet, stance, dist, mpc_cfg, dt_mpc)
+        ctrl = ctrl._replace(iteration=ctrl.iteration + loop_cfg.iterations_between_mpc)
+
+    qp1 = qp_admm.QPData(P=qp.P[0], q=qp.q[0], F=qp.F, l=qp.l[0], u=qp.u[0])
+    return qp1, _np(ctrl.warm_x[0]), MPCConfig(horizon=horizon)
+
+
+def production_warm_x6(qp) -> np.ndarray:
+    """The shipping setting: the fused ADMM kernel (its plain version on
+    the CPU) + uniform rho + ns_inverse_bucket escalation, warm-carried x6.
+    Batched (1,) so the bucket path (flat-batch top k) runs."""
+    qp_b = qp_admm.QPData(P=qp.P[None], q=qp.q[None], F=qp.F, l=qp.l[None], u=qp.u[None])
+    cfg = ADMMConfig(iterations=30, backend="pallas")
+    warm = None
+    for _ in range(6):
+        x, warm = qp_admm.solve(qp_b, cfg, warm=warm)
+    return _np(x[0])
+
+
+class SceneSolves(NamedTuple):
+    """One scene's golden answer and every solver setting's answer (float64
+    numpy, flat), with the QP they answered."""
+
+    qp: qp_admm.QPData
+    horizon: int
+    x_gold: np.ndarray
+    x: dict
+
+
+def _np(x) -> np.ndarray:
+    return x.double().cpu().numpy().reshape(-1)
+
+
+def solve_scene(scene, device="cuda") -> SceneSolves:
+    """The reference's qpOASES and every solver setting on one scene."""
+    if scene.get("walking"):
+        qp, x_prod, cfg = walking_scene(
+            scene["horizon"], scene["steps"],
+            gait=scene.get("gait", "trotting"), vx=scene.get("vx", 0.3), device=device)
+        sw = None
+    else:
+        qp, sw, cfg = scene_problems(
+            **{k: v for k, v in scene.items() if k != "walking"}, device=device)
+        x_prod = None
+    h = cfg.horizon
+    A = golden.dense_constraint_matrix(qp.F, h)
+    # nWSR = 500: the disturbance-active scenes need ~150 pivots, past the
+    # reference's own shipped cap of 100 (SolverMPC.cpp:854); the golden is
+    # the optimum, so qpOASES gets the budget
+    x_gold, status, _ = golden.solve(qp.P, qp.q, A, qp.l, qp.u, reduced=True, nwsr=500)
+    if status != 0:
+        raise RuntimeError(f"qpOASES status {status}")
+
+    x = {}
+    x["ADMM-400 cold"] = _np(qp_admm.solve(qp, ADMMConfig(iterations=400))[0])
+    acfg = ADMMConfig(iterations=30)
+    warm = None
+    for _ in range(6):
+        xw, warm = qp_admm.solve(qp, acfg, warm=warm)
+    x["ADMM-30 warm x6"] = _np(xw)
+    # the walking scene's production row is the carried warm solve
+    x["production warm x6"] = production_warm_x6(qp) if x_prod is None else x_prod
+    x["PDIP-40"] = _np(qp_pdip.solve(qp, PDIPConfig(iterations=40))[0])
+    x["PDIP-40 spd"] = _np(qp_pdip.solve(qp, PDIPConfig(iterations=40, kkt="spd"))[0])
+    if sw is not None:
+        x["stagewise ADMM-400"] = _np(qp_stagewise.solve(sw, ADMMConfig(iterations=400))[0])
+    return SceneSolves(qp=qp, horizon=h, x_gold=x_gold, x=x)
+
+
+def scene_gaps(solves: SceneSolves, walking: bool) -> dict[str, float]:
+    """Every setting's largest |x - x_qpOASES| (N); a walking scene also
+    gives ``_walk_first_step`` (the applied forces' gap) and
+    ``_walk_obj_excess`` (the production answer's objective over the
+    optimum's)."""
+    x_gold = solves.x_gold
+    out = {name: float(np.abs(x - x_gold).max()) for name, x in solves.x.items()}
+    if walking:
+        # the production gap splits into the APPLIED first-step forces and
+        # the horizon tail (re-solved before it ever reaches the robot)
+        x_prod = solves.x["production warm x6"]
+        d3 = (x_prod - x_gold).reshape(solves.horizon, 12)
+        P64 = _np(solves.qp.P).reshape(x_gold.size, x_gold.size)
+        q64 = _np(solves.qp.q)
+        obj = lambda v: 0.5 * v @ P64 @ v + q64 @ v
+        out["_walk_first_step"] = float(np.abs(d3[0]).max())
+        out["_walk_obj_excess"] = float(obj(x_prod) - obj(x_gold))
+    return {k: out[k] for k in (*SOLVERS[:3], "_walk_first_step", "_walk_obj_excess",
+                                *SOLVERS[3:]) if k in out}
+
+
+def gaps_for_scene(scene, device="cuda") -> dict[str, float]:
+    """``scene_gaps`` of ``solve_scene``: the table's cells for one scene."""
+    return scene_gaps(solve_scene(scene, device), bool(scene.get("walking")))
+
+
+def scene_name(sc) -> str:
+    if sc.get("walking"):
+        g = sc.get("gait", "trotting")[:5]
+        return (f"h={sc['horizon']} walking x{sc['steps']} {g} "
+                f"vx={sc.get('vx', 0.3)} (prod warm)")
+    n = f"h={sc['horizon']} seed={sc['seed']} seg={sc['segment']}"
+    if sc.get("gait", "trotting") != "trotting":
+        n += f" {sc['gait']}"
+    if sc.get("f_est") is not None:
+        n += " f_est"
+    return n
+
+
+def format_table(rows, prose: bool = True) -> str:
+    """The JAX tool's markdown table and walking split for [(scene, gaps)];
+    without ``prose``, only what was measured and the tables."""
+    lines = [
+        "Measured max |f - f_qpoases| (N) per golden scene, f32 solves vs",
+        "the reference's compiled double-precision qpOASES"
+        " (`Options::setToMPC`,",
+        "nWSR=500, swing-leg-eliminated; the disturbance-active scenes",
+        "need ~150 pivots — past the reference's own shipped nWSR=100).",
+    ]
+    if prose:
+        lines += [
+            "\"production\" = the shipping pallas f32-resident-K^{-1} +",
+            "ns_inverse_bucket + uniform-rho config, warm x6; the walking",
+            "scene measures it warm-carried through 6 plant-stepped steps",
+            "(bench methodology) on the final step's QP.  The bf16-K^{-1}",
+            "kernel variant was demoted from production by this table: it",
+            "measured ~4.5 N in the weakly-penalized (alpha = 4e-5) force",
+            "directions that the KKT audit is blind to.  PDIP-40 spd is the",
+            "WBIC-size (12-var) Newton setting shown here at MPC sizes for",
+            "completeness — at n >= 120 / barrier cond ~1e9 the explicit f32",
+            "Schur inverse loses the solve, which is exactly why",
+            "PDIPConfig.kkt defaults to \"cholesky\" for MPC and \"spd\" only",
+            "inside the WBC (config.py).  The h=16 f_est scene's elevated",
+            "gaps are the ADMM/IPM feasibility floor trading ~1e-3",
+            "constraint violation for objective (measured: ADMM objective",
+            "BELOW gold with 1.2e-3 violation), not solver error.",
+        ]
+    lines += [
+        f"Generated by `{COMMAND}`.",
+        "",
+        "| scene | " + " | ".join(SOLVERS) + " |",
+        "|---|" + "---|" * len(SOLVERS),
+    ]
+    for sc, g in rows:
+        cells = [f"{g[s]:.2e}" if s in g else "n/a" for s in SOLVERS]
+        lines.append("| " + scene_name(sc) + " | " + " | ".join(cells) + " |")
+    walks = [(sc, g) for sc, g in rows if sc.get("walking") and "_walk_first_step" in g]
+    if walks:
+        lines += [
+            "",
+            "Walking-sequence decomposition (the production cells above are",
+            "dominated by the horizon TAIL, re-solved before ever being",
+            "applied; what reaches the robot is the first step):",
+            "",
+            "| walking scene | tail gap (N) | APPLIED first-step gap (N) |"
+            " objective excess |",
+            "|---|---|---|---|",
+        ]
+        for sc, g in walks:
+            lines.append(
+                f"| {scene_name(sc)} | {g['production warm x6']:.2e} | "
+                f"{g['_walk_first_step']:.2e} | "
+                f"{g['_walk_obj_excess']:.1e} |"
+            )
+        if prose:
+            lines += [
+                "",
+                "The tail gap lives in the alpha = 4e-5 weighted directions;",
+                "closed-loop tracking matches the PDIP reference",
+                "(tests/test_closed_loop.py).",
+            ]
+    return "\n".join(lines)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--update", action="store_true",
+                    help="rewrite this tool's block in PERF.md")
+    ap.add_argument("--cpu", action="store_true", help="run on the CPU, not the card")
+    args = ap.parse_args(argv)
+    device = pick_device(args.cpu)
+    golden.load()
+
+    rows = []
+    for sc in SCENES:
+        rows.append((sc, gaps_for_scene(sc, device)))
+        print(f"  done: {scene_name(sc)}", file=sys.stderr, flush=True)
+    if args.update:
+        write_block(BEGIN, END, f"On {device_line(device)}:\n\n{format_table(rows, prose=False)}")
+    else:
+        print(format_table(rows))
+
+
+if __name__ == "__main__":
+    main()

@@ -93,6 +93,9 @@ def test_import_leaves_jax_out():
         "missing = [m for m in slice10 if p.__name__ + '.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "assert p.__name__ + '.parallel.batch_group' in sys.modules\n"
+        "slice12 = ['tools', 'tools.parity_table', 'tools.estimator_ab']\n"
+        "missing = [m for m in slice12 if p.__name__ + '.' + m not in sys.modules]\n"
+        "assert not missing, missing\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
@@ -104,8 +107,9 @@ def test_import_leaves_jax_out():
     # scheduler, utils.filters) and slice 9's (the CLI and __main__, whose
     # import runs nothing, the runtime bridge, the utilities, the fixtures
     # and the golden solves), slice 10's (the CUDA graphs, the constant
-    # cache) and slice 11's (the batch group) included
-    assert int(out.stdout.strip()) >= 85
+    # cache), slice 11's (the batch group) and slice 12's (the evidence
+    # tools) included
+    assert int(out.stdout.strip()) >= 88
 
 
 @pytest.mark.parametrize("name", [
