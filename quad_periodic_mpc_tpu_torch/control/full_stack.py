@@ -43,6 +43,7 @@ from quad_periodic_mpc_tpu_torch.ops.cuda import kinematics_kernel, plant_kernel
 from quad_periodic_mpc_tpu_torch.ops.rotations import quat_to_rotmat
 from quad_periodic_mpc_tpu_torch.runtime import graphs
 from quad_periodic_mpc_tpu_torch.sim import articulated_sim as art
+from quad_periodic_mpc_tpu_torch.utils.telemetry import span, spanned
 
 
 class FullStackCarry(NamedTuple):
@@ -72,6 +73,7 @@ def observe_plant(plant: art.ArtState, mc: fb.ModelConstants, kin_backend: str =
     return _observation(s, R, info), R, info
 
 
+@spanned("full_stack.controller_tick")
 def controller_tick(
     plant: art.ArtState,
     ctrl: mpc_mod.ControllerState,
@@ -100,16 +102,17 @@ def controller_tick(
     Returns (ctrl', tau (..., 4, 3), model_terms) with model_terms =
     (A, Ainv, grav, cori, info), the tick's one model evaluation, shared by
     the WBC, the plant's substep cache and the observation."""
-    if kin_backend == "pallas":
-        A_t, Ainv_t, G_t, C_t, info = kinematics_kernel.fused_model_eval(plant.fb, mc)
-        R = quat_to_rotmat(plant.fb.quat)
-        obs = _observation(plant.fb, R, info)
-    else:
-        obs, R, info = observe_plant(plant, mc)
-        A_t = fb.mass_matrix(plant.fb, mc)
-        Ainv_t = linalg.spd_inverse(A_t)
-        G_t = fb.generalized_gravity(plant.fb, mc)
-        C_t = fb.generalized_coriolis(plant.fb, mc)
+    with span("kinematics.model_eval"):
+        if kin_backend == "pallas":
+            A_t, Ainv_t, G_t, C_t, info = kinematics_kernel.fused_model_eval(plant.fb, mc)
+            R = quat_to_rotmat(plant.fb.quat)
+            obs = _observation(plant.fb, R, info)
+        else:
+            obs, R, info = observe_plant(plant, mc)
+            A_t = fb.mass_matrix(plant.fb, mc)
+            Ainv_t = linalg.spd_inverse(A_t)
+            G_t = fb.generalized_gravity(plant.fb, mc)
+            C_t = fb.generalized_coriolis(plant.fb, mc)
 
     ctrl = mpc_mod.setup_command(ctrl, cmd, loop_cfg)
     if do_mpc:
@@ -138,8 +141,9 @@ def controller_tick(
         )
         wout = wbc_mod.run(plant.fb, winp, mc, gains=wbc_gains, pdip=wbc_pdip,
                            model=(A_t, Ainv_t, G_t, C_t, info), backend=wbc_backend)
-        tau = (wout.tau_ff + wout.kp_joint * (wout.q_des - q)
-               + wout.kd_joint * (wout.qd_des - qd))
+        with span("full_stack.joint_pd"):
+            tau = (wout.tau_ff + wout.kp_joint * (wout.q_des - q)
+                   + wout.kd_joint * (wout.qd_des - qd))
     else:
         # MPC-only stance force path + swing cartesian PD
         data = lc.update_data(q, qd, model)
@@ -198,14 +202,15 @@ def tick_step(
         # the substeps reuse the tick's model terms and contact kinematics
         # (art.model_cache / step_fast contract)
         cache = (Ainv_t, G_t, C_t)
-        if kin_backend == "pallas":
-            plant, _ = plant_kernel.fused_substeps(plant, tau, sub_dt, contact, cache,
-                                                   info.Jc, info.p_foot, substeps)
-        else:
-            pf = info.p_foot
-            for _ in range(substeps):
-                plant, pf, _ = art.step_fast(plant, tau, sub_dt, contact, cache,
-                                             info.Jc, pf)
+        with span("plant.substeps"):
+            if kin_backend == "pallas":
+                plant, _ = plant_kernel.fused_substeps(plant, tau, sub_dt, contact, cache,
+                                                       info.Jc, info.p_foot, substeps)
+            else:
+                pf = info.p_foot
+                for _ in range(substeps):
+                    plant, pf, _ = art.step_fast(plant, tau, sub_dt, contact, cache,
+                                                 info.Jc, pf)
         return (FullStackCarry(plant, ctrl),)
 
     return step
@@ -274,7 +279,7 @@ def rollout_articulated_graphed(
     eagerly): the same arguments, kernels, launches and result, the trace
     copied on the card.  On CPU tensors every period runs eagerly."""
     carry = FullStackCarry(plant, ctrl)
-    graphed = graphs.capture(period_step(cmd, gait, mc, **kw), carry)
+    graphed = graphs.capture(period_step(cmd, gait, mc, **kw), carry, name="full_stack.period")
     return _periods(graphed, carry, n_mpc_steps, keep=torch.clone)
 
 
@@ -287,8 +292,9 @@ def capture_ticks(plant: art.ArtState, ctrl: mpc_mod.ControllerState, cmd, gait,
     each handing the next the carry it returned.  Each runs its first
     ``graphs.WARMUP`` calls eagerly and replays from then on.  On CPU
     tensors the two are the eager steps."""
-    mpc_tick = graphs.capture(tick_step(cmd, gait, mc, True, **kw), FullStackCarry(plant, ctrl))
+    mpc_tick = graphs.capture(tick_step(cmd, gait, mc, True, **kw), FullStackCarry(plant, ctrl),
+                              name="full_stack.mpc_tick")
     plain = tick_step(cmd, gait, mc, False, **kw)
     if isinstance(mpc_tick, graphs.Graphed):
-        return mpc_tick, mpc_tick.also(plain)
+        return mpc_tick, mpc_tick.also(plain, name="full_stack.plain_tick")
     return mpc_tick, plain

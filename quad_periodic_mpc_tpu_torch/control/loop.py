@@ -35,6 +35,7 @@ from quad_periodic_mpc_tpu_torch.ops.rotations import quat_to_rpy
 from quad_periodic_mpc_tpu_torch.runtime import graphs
 from quad_periodic_mpc_tpu_torch.sim import srb_sim
 from quad_periodic_mpc_tpu_torch.terrain import heightmap as hmap
+from quad_periodic_mpc_tpu_torch.utils.telemetry import spanned
 
 
 class RolloutCarry(NamedTuple):
@@ -171,6 +172,7 @@ def period_step(
     else:
         foothold_adjust = None
 
+    @spanned("loop.control_tick")
     def control_tick(carry: RolloutCarry, do_mpc: bool) -> RolloutCarry:
         plant, ctrl = carry
         obs = srb_sim.observe(plant)
@@ -266,6 +268,6 @@ def rollout_graphed(n_mpc_steps: int, plant: srb_sim.PlantState,
     if inspect.signature(period_step).bind(*args, **kw).arguments.get("heightmap") is not None:
         raise ValueError("rollout_graphed runs no heightmap yet; call rollout")
     carry = RolloutCarry(plant, ctrl)
-    graphed = graphs.capture(period_step(*args, **kw), carry)
+    graphed = graphs.capture(period_step(*args, **kw), carry, name="loop.period")
     return _periods(graphed, carry, n_mpc_steps,
                     keep=lambda trace: RolloutTrace(*(t.clone() for t in trace)))

@@ -57,6 +57,7 @@ from quad_periodic_mpc_tpu_torch.ops.rotations import (
     rpy_to_rotmat,
 )
 from quad_periodic_mpc_tpu_torch.utils.consts import const
+from quad_periodic_mpc_tpu_torch.utils.telemetry import span, spanned
 
 
 class Observation(NamedTuple):
@@ -218,6 +219,7 @@ def _v_des(state: ControllerState, R: torch.Tensor):
     return v_des_robot, (R @ v_des_robot[..., None])[..., 0]
 
 
+@spanned("mpc.mpc_step")
 def mpc_step(
     state: ControllerState,
     obs: Observation,
@@ -253,8 +255,9 @@ def mpc_step(
     R = quat_to_rotmat(obs.quat)
     rpy = quat_to_rpy(obs.quat)
     _, v_des_world = _v_des(state, R)
-    x_ref, state = build_reference_trajectory(
-        state, obs, cmd, v_des_world, rpy, mpc, loop)
+    with span("mpc.reference_trajectory"):
+        x_ref, state = build_reference_trajectory(
+            state, obs, cmd, v_des_world, rpy, mpc, loop)
 
     # r = pFoot - p, with z from ground truth when available (:628)
     p_used = obs.p
@@ -274,74 +277,76 @@ def mpc_step(
     )
 
     # ---- disturbance residual + periodic estimator ----
-    x_k = srb.pack_state(rpy, p_used, obs.omega, obs.v, mpc.gravity)
-    if est_cfg.residual == "discrete":
-        f_ext = est_ops.residual_discrete(
-            x_k, state.prev_x, state.fr_des, state.prev_R, state.prev_r_feet,
-            mpc.mass, mpc.inertia_body, state.prev_x_drag, mpc.dt_mpc)
-    else:
-        f_ext = est_ops.residual_f_ext(
-            x_k, state.prev_x, state.f_ff, state.prev_R, state.prev_r_feet,
-            mpc.mass, mpc.inertia_body, state.prev_x_drag)
-    f_ext = torch.where(state.have_prev[..., None], f_ext, torch.zeros_like(f_ext))
-    est_state, f_for_qp = est_ops.update(
-        state.est, sim_time, f_ext, est_cfg,
-        ema_smooth=None if tunable is None else tunable.ema_smooth,
-        ema_static=None if tunable is None else tunable.ema_static)
-    f_steps = None
-    if est_cfg.predictive:
-        f_steps = est_ops.predict_horizon(est_state, sim_time, mpc.dt_mpc, h, est_cfg)
+    with span("estimator.update"):
+        x_k = srb.pack_state(rpy, p_used, obs.omega, obs.v, mpc.gravity)
+        if est_cfg.residual == "discrete":
+            f_ext = est_ops.residual_discrete(
+                x_k, state.prev_x, state.fr_des, state.prev_R, state.prev_r_feet,
+                mpc.mass, mpc.inertia_body, state.prev_x_drag, mpc.dt_mpc)
+        else:
+            f_ext = est_ops.residual_f_ext(
+                x_k, state.prev_x, state.f_ff, state.prev_R, state.prev_r_feet,
+                mpc.mass, mpc.inertia_body, state.prev_x_drag)
+        f_ext = torch.where(state.have_prev[..., None], f_ext, torch.zeros_like(f_ext))
+        est_state, f_for_qp = est_ops.update(
+            state.est, sim_time, f_ext, est_cfg,
+            ema_smooth=None if tunable is None else tunable.ema_smooth,
+            ema_static=None if tunable is None else tunable.ema_static)
+        f_steps = None
+        if est_cfg.predictive:
+            f_steps = est_ops.predict_horizon(est_state, sim_time, mpc.dt_mpc, h, est_cfg)
 
     # ---- QP assembly + solve ----
-    seg = gait_ops.segment_index(gait, state.iteration, loop.iterations_between_mpc)
-    table = gait_ops.mpc_table(gait, seg, h)
-    lead = obs.p.shape[:-1]
-    qp_obs = problem.RobotObs(
-        p=p_used, v=obs.v, quat=obs.quat, omega=obs.omega, r_feet=r_feet)
-    if isinstance(solver, ADMMConfig) and solver.formulation == "stagewise":
-        # Fused-build gate (reference mpc.py:347-351): the dynamics are
-        # assembled inside the kernel, which needs a time-invariant
-        # disturbance term and the config's shared costs, is f32-internal
-        # and serves h <= 64.
-        use_fused_build = (
-            solver.backend == "pallas" and h <= 64 and f_steps is None
-            and tunable is None and dtype == torch.float32)
-        if use_fused_build:
-            U, z, y = _fused_build_solve(
-                state, R, r_feet, x_comp, f_for_qp, x_k, x_ref, table, mpc, solver)
-            qp_out = None
-            if return_qp:
-                # materialize the same problem, so the KKT audit checks the
-                # production dispatch
+    with span("mpc.qp_solve"):
+        seg = gait_ops.segment_index(gait, state.iteration, loop.iterations_between_mpc)
+        table = gait_ops.mpc_table(gait, seg, h)
+        lead = obs.p.shape[:-1]
+        qp_obs = problem.RobotObs(
+            p=p_used, v=obs.v, quat=obs.quat, omega=obs.omega, r_feet=r_feet)
+        if isinstance(solver, ADMMConfig) and solver.formulation == "stagewise":
+            # Fused-build gate (reference mpc.py:347-351): the dynamics are
+            # assembled inside the kernel, which needs a time-invariant
+            # disturbance term and the config's shared costs, is f32-internal
+            # and serves h <= 64.
+            use_fused_build = (
+                solver.backend == "pallas" and h <= 64 and f_steps is None
+                and tunable is None and dtype == torch.float32)
+            if use_fused_build:
+                U, z, y = _fused_build_solve(
+                    state, R, r_feet, x_comp, f_for_qp, x_k, x_ref, table, mpc, solver)
+                qp_out = None
+                if return_qp:
+                    # materialize the same problem, so the KKT audit checks the
+                    # production dispatch
+                    qp_out, _ = problem.build_stagewise(
+                        qp_obs, x_ref, table, mpc, f_est=f_for_qp, x_drag=x_comp)
+            else:
                 qp_out, _ = problem.build_stagewise(
-                    qp_obs, x_ref, table, mpc, f_est=f_for_qp, x_drag=x_comp)
+                    qp_obs, x_ref, table, mpc, f_est=f_for_qp, x_drag=x_comp,
+                    f_est_steps=f_steps, tunable=tunable)
+                warm = (state.warm_x.reshape(lead + (h, 12)),
+                        state.warm_z.reshape(lead + (h, 20)),
+                        state.warm_y.reshape(lead + (h, 20)))
+                U, info = qp_stagewise.solve(qp_out, solver, warm=warm)
+                z, y = info["z"], info["y"]
+            state = state._replace(
+                warm_x=U.reshape(lead + (h * 12,)),
+                warm_z=z.reshape(lead + (h * 20,)),
+                warm_y=y.reshape(lead + (h * 20,)),
+            )
         else:
-            qp_out, _ = problem.build_stagewise(
+            qp_out, _, _ = problem.build_qp(
                 qp_obs, x_ref, table, mpc, f_est=f_for_qp, x_drag=x_comp,
                 f_est_steps=f_steps, tunable=tunable)
-            warm = (state.warm_x.reshape(lead + (h, 12)),
-                    state.warm_z.reshape(lead + (h, 20)),
-                    state.warm_y.reshape(lead + (h, 20)))
-            U, info = qp_stagewise.solve(qp_out, solver, warm=warm)
-            z, y = info["z"], info["y"]
-        state = state._replace(
-            warm_x=U.reshape(lead + (h * 12,)),
-            warm_z=z.reshape(lead + (h * 20,)),
-            warm_y=y.reshape(lead + (h * 20,)),
-        )
-    else:
-        qp_out, _, _ = problem.build_qp(
-            qp_obs, x_ref, table, mpc, f_est=f_for_qp, x_drag=x_comp,
-            f_est_steps=f_steps, tunable=tunable)
-        if isinstance(solver, ADMMConfig):
-            warm = qp_admm.ADMMState(
-                x=state.warm_x, z=state.warm_z, y=state.warm_y, kinv=state.warm_kinv)
-            U, warm_out = qp_admm.solve(qp_out, solver, warm=warm)
-            state = state._replace(
-                warm_x=warm_out.x, warm_z=warm_out.z, warm_y=warm_out.y,
-                warm_kinv=warm_out.kinv)
-        else:
-            U, _ = qp_pdip.solve(qp_out, solver)
+            if isinstance(solver, ADMMConfig):
+                warm = qp_admm.ADMMState(
+                    x=state.warm_x, z=state.warm_z, y=state.warm_y, kinv=state.warm_kinv)
+                U, warm_out = qp_admm.solve(qp_out, solver, warm=warm)
+                state = state._replace(
+                    warm_x=warm_out.x, warm_z=warm_out.z, warm_y=warm_out.y,
+                    warm_kinv=warm_out.kinv)
+            else:
+                U, _ = qp_pdip.solve(qp_out, solver)
 
     forces = U.reshape(lead + (h, 4, 3))
     f_mpc0 = forces[..., 0, :, :]
@@ -399,6 +404,7 @@ def _fused_build_solve(state, R, r_feet, x_comp, f_for_qp, x_k, x_ref, table, mp
     )
 
 
+@spanned("mpc.swing_update")
 def swing_update(
     state: ControllerState,
     obs: Observation,

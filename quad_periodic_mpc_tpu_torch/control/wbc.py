@@ -35,6 +35,7 @@ from quad_periodic_mpc_tpu_torch.ops import linalg, qp_pdip
 from quad_periodic_mpc_tpu_torch.ops.qp_admm import QPData
 from quad_periodic_mpc_tpu_torch.ops.rotations import quat_to_rotmat, rpy_to_quat
 from quad_periodic_mpc_tpu_torch.utils.consts import const
+from quad_periodic_mpc_tpu_torch.utils.telemetry import spanned
 
 N_DOF = 18
 
@@ -256,6 +257,7 @@ def wbic(state: fb.FBState, A, Ainv, cori, grav, Jc_masked, Jcdqd_masked,
     return tau_full[..., 6:], fr, qddot_final
 
 
+@spanned("wbc.run")
 def run(
     state: fb.FBState,
     inp: WBCInput,

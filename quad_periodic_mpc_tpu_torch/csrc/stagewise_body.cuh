@@ -19,7 +19,8 @@
 //      I/||Quu||_inf, ns_it rounds); later stages warm from the previous
 //      stage's inverse with the alpha = 1.8/(1+r) rescale when r >= 0.9,
 //      ns_warm rounds in all, then a 2e-3 residual gate (NaN counts as bad)
-//      that restarts a bad stage cold;
+//      that restarts a bad stage cold, and adds 1 to *Params::rescues
+//      where the entry point passes a counter (null: no count);
 //   2. `iters` ADMM sweeps: a backward costate sweep (storing v = Pc + p), a
 //      forward closed-loop rollout with over-relaxation, the clip to [l, u]
 //      and the dual update.
@@ -89,6 +90,7 @@ struct Params {
   float dt, dt2, dt3;                  // dt, dt^2/2, dt^3/6
   float dt_inv_m, dt2_inv_m, dt3_inv_m;
   float d0, d1, d2;                    // 1 / I_body diagonal
+  unsigned long long* rescues;         // stages restarted cold, or null
 };
 
 // Live rows of N = Ad - I ({0..5, 11}, = live columns of N^T) and its live
@@ -372,7 +374,8 @@ __device__ __forceinline__ void cold_seed(const float* Quu, float* X, float* row
 // Stage Quu^{-1} into X (X holds the previous stage's inverse when !first).
 __device__ __forceinline__ void stage_quu_inverse(const float* Quu, float*& X, float*& Xs,
                                                   bool first, int ns_it, int ns_warm,
-                                                  float* T, float* M, float* rows) {
+                                                  float* T, float* M, float* rows,
+                                                  unsigned long long* rescues) {
   if (first) {
     cold_seed(Quu, X, rows, false);
     for (int r = 0; r < ns_it; ++r) ns_round(Quu, X, Xs, T);
@@ -401,6 +404,7 @@ __device__ __forceinline__ void stage_quu_inverse(const float* Quu, float*& X, f
   __syncwarp();
   const float err = inf_norm12(M, true, rows);
   if (!(err < 2e-3f)) {                            // catches NaN too; warp-uniform
+    if (rescues != nullptr && wl::lane() == 0) atomicAdd(rescues, 1ull);
     cold_seed(Quu, X, rows, true);
     for (int rr = 0; rr < ns_it; ++rr) ns_round(Quu, X, Xs, T);
   }
@@ -463,7 +467,8 @@ __device__ __forceinline__ void solve_body(Smem& sm, const Io& io, const Params&
       t.Qux[e] = row_times_A<SRB_AD>(t.BtP + a * NX, sm.A, j);
     }
     __syncwarp();
-    stage_quu_inverse(t.Quu, X, Xs, kk == 0, p.ns_it, p.ns_warm, t.T, t.M, sm.rows);
+    stage_quu_inverse(t.Quu, X, Xs, kk == 0, p.ns_it, p.ns_warm, t.T, t.M, sm.rows,
+                      p.rescues);
     wl::gemm(t.K, NX, nullptr, 0, 1.f, X, NU, 1, t.Qux, NX, 1, NU, NU, NX);   // K = Minv Qux
     __syncwarp();
     // K and Quu^{-1} into the record; Pn = Qm + AtP Ad - Qux^T K

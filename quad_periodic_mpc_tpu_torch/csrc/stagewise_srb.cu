@@ -9,6 +9,10 @@
 // srb_assemble, then runs solve_body (both in stagewise_body.cuh: the
 // backward Riccati with warm gated Newton-Schulz inverses, then `iters`
 // ADMM sweeps) with the structured Ad products and the one shared c.
+// Params::rescues, where the caller passes one, counts the (instance, stage)
+// pairs whose warm Newton-Schulz inverse failed the gate and restarted cold:
+// one atomicAdd a rescue, nothing else, so the solve's arithmetic is as
+// without it.
 //
 // srb_build_dump_kernel replaces ::srb_build_dump (_kernel_srb_dump): it
 // calls the same srb_assemble device function and writes Ad, Bd and c out,

@@ -27,7 +27,12 @@ the plain version for CPU tensors; the CUDA branch is the wrapper's
 ``srb_assemble`` for the dump) run the same sequential algorithm in batched
 torch ops in the same elimination order; the tests use them, and the
 port's entry points use them on the CPU.  ``LAUNCHES`` counts kernel
-launches by entry point since it was last reset.
+launches by entry point since it was last reset.  ``RESCUES`` counts, on
+each device, the (instance, stage) pairs of ``fused_stagewise_solve_srb``
+whose warm Newton-Schulz inverse failed the gate and restarted cold
+(``rescues()`` sums them): the kernel adds to a counter on its device, the
+plain version its ``stats["rescued"]``; ``PLAIN_PAIRS`` counts the pairs
+the plain version solved (the kernel's are its launches x B x h).
 
 NS rescue semantics: a stage whose warm Newton-Schulz inverse fails the
 2e-3 residual gate restarts cold on its own instance.  The TPU kernels
@@ -62,6 +67,10 @@ GAIN_RECORD = {False: 360, True: 268}
 
 LAUNCHES = {"fused_stagewise_solve_srb": 0, "fused_stagewise_solve": 0,
             "fused_stagewise_solve_stream": 0, "srb_build_dump": 0}
+# device -> int64 counter on it, made by the first solve there outside a
+# capture, so that every replay of a graph captured later adds to it
+RESCUES: dict[str, torch.Tensor] = {}
+PLAIN_PAIRS = 0
 
 
 class _Params(ctypes.Structure):
@@ -71,7 +80,24 @@ class _Params(ctypes.Structure):
         + [(n, ctypes.c_float) for n in (
             "rho", "rho_inv", "a", "one_minus_a", "dt", "dt2", "dt3",
             "dt_inv_m", "dt2_inv_m", "dt3_inv_m", "d0", "d1", "d2")]
+        + [("rescues", ctypes.c_void_p)]            # null: no count
     )
+
+
+def _rescue_counter(device) -> torch.Tensor | None:
+    """The device's rescue counter, made on first use; None while a
+    stream is captured and there is none yet (that solve is not counted)."""
+    counter = RESCUES.get(str(device))
+    if counter is None and not (device.type == "cuda"
+                                and torch.cuda.is_current_stream_capturing()):
+        counter = RESCUES[str(device)] = torch.zeros((), dtype=torch.int64, device=device)
+    return counter
+
+
+def rescues() -> int:
+    """Rescued (instance, stage) pairs of the fused-build solve, summed
+    over the devices (a host read: call it after the work)."""
+    return sum(int(c) for c in RESCUES.values())
 
 
 def _constants(dt: float, mass: float) -> dict[str, float]:
@@ -315,6 +341,16 @@ def fused_stagewise_solve_srb_reference(
                             iters, rho, over_relax, ns_it, stats=stats)
 
 
+def _fused_stagewise_solve_srb_counted(*args, **kw):
+    """The plain version, its rescues added to the device's counter."""
+    global PLAIN_PAIRS
+    stats: dict = {}
+    out = fused_stagewise_solve_srb_reference(*args, **kw, stats=stats)
+    _rescue_counter(args[4].device).add_(stats["rescued"])
+    PLAIN_PAIRS += args[5].shape[0] * args[5].shape[1]
+    return out
+
+
 def fused_stagewise_solve_reference(
     Ad, Bd, c, x0, x_ref, Q, R_eff, F, l, u, U0, z0, y0,
     iters: int, rho: float, over_relax: float = 1.6, ns_it: int = 16,
@@ -409,7 +445,7 @@ def fused_stagewise_solve_srb(
     Bn, _ = _check_common(*args[4:])
     _check_observation(R, r_feet, x_drag, f_est, Bn, x0.device)
     return _dispatch(x0.device, _fused_stagewise_solve_srb_cuda,
-                     fused_stagewise_solve_srb_reference, args, kw)
+                     _fused_stagewise_solve_srb_counted, args, kw)
 
 
 def fused_stagewise_solve(
@@ -483,8 +519,10 @@ def _fused_stagewise_solve_srb_cuda(
     with torch.cuda.device(device):
         out, gains = _resident_buffers(Bn, h, dict(dtype=torch.float32, device=device))
         d = [float(v) for v in i_inv_diag]
+        counter = _rescue_counter(device)
         params = _params(Bn, h, iters, rho, over_relax, ns_it, srb_ad=1, c_per_step=0,
-                         d0=d[0], d1=d[1], d2=d[2], **_constants(float(dt), float(mass)))
+                         d0=d[0], d1=d[1], d2=d[2], **_constants(float(dt), float(mass)),
+                         rescues=None if counter is None else counter.data_ptr())
         build.launch(SOURCE, "stagewise_srb_launch",
                      [R, r_feet, x_drag, f_est, x0, x_ref, l, u, U0, z0, y0, Q, R_eff,
                       F, *out, gains], params, device)

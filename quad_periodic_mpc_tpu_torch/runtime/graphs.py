@@ -40,6 +40,16 @@ not run.  The capture's change of the counts is taken back out (a capture
 launches nothing) and every replay adds it again, so the counts say what
 the card ran; the eager warm-up calls are real launches and stay counted.
 
+Each graph has a name (``capture``'s ``name``, by default the step's
+qualified name), under which its set-up is recorded.  The warm-up calls
+and the capture are spans of ``utils/telemetry`` in set-up mode
+(``graphs.warmup``, ``graphs.capture``), and the capture builds the
+graph's segment map from the spans inside the step (``segments``), the
+state's write-back being ``graphs.writeback``.  A replay is the span
+``graphs.replay`` (the copy-in, the replay and the launch accounting),
+which is in force only while a profiler records, and then logs the
+replay (``telemetry.REPLAYS``).
+
 On CPU tensors ``capture`` returns ``step`` itself: the caller chose the
 CPU, as the kernel wrappers take their plain versions there.  On CUDA
 tensors a capture that fails raises; nothing reruns the step eagerly.
@@ -52,6 +62,7 @@ import torch
 from quad_periodic_mpc_tpu_torch.ops.cuda import (
     admm_kernel, kf_kernel, kinematics_kernel, plant_kernel, stagewise_kernel, wbc_kernel,
 )
+from quad_periodic_mpc_tpu_torch.utils import telemetry
 from quad_periodic_mpc_tpu_torch.utils.telemetry import leaves, unflatten
 
 WARMUP = 2
@@ -110,16 +121,21 @@ class Graphed:
     replayed launches to the wrappers' counts, and returns the step's
     outputs: the state as the graph's buffers, then the extra outputs.
     These are the same tensors on every replay: the next replay overwrites
-    them, so clone what must outlive it."""
+    them, so clone what must outlive it.
 
-    def __init__(self, step, static: tuple, pool):
-        self._step, self.pool = step, pool
+    ``segments`` is the graph's segment map (``telemetry.Segment``s, in
+    node order) and ``nodes`` its node count, from the capture on."""
+
+    def __init__(self, step, static: tuple, pool, name: str | None = None):
+        self._step, self.pool, self.name = step, pool, name or _qualname(step)
         self._state = static
         self._static = leaves(static)
         self._device = self._static[0].device
         self._calls = 0
         self.graph = None
         self.launches: dict = {}
+        self.segments: tuple = ()
+        self.nodes = 0
         self._out: tuple = ()
 
     def _check(self, given: list) -> None:
@@ -153,52 +169,69 @@ class Graphed:
         before = launch_counts()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self.pool):
-            out = self._step(*state)
-            new = leaves(out[:n])
-            self._check(new)
-            # an output that is (a view of) a state buffer is copied out
-            # before the state is written back
-            held = {_storage(s) for s in self._static}
-            own = lambda x: x.clone() if _storage(x) in held else x
-            new = [x if x is s else own(x) for x, s in zip(new, self._static)]
-            extra = [own(x) for x in leaves(out[n:])]
-            for x, s in zip(new, self._static):
-                if x is not s:
-                    s.copy_(x)
+            stream = torch.cuda.current_stream(self._device).cuda_stream
+            with telemetry.capturing(stream) as nodes:
+                out = self._step(*state)
+                new = leaves(out[:n])
+                self._check(new)
+                with telemetry.span("graphs.writeback"):
+                    # an output that is (a view of) a state buffer is copied
+                    # out before the state is written back
+                    held = {_storage(s) for s in self._static}
+                    own = lambda x: x.clone() if _storage(x) in held else x
+                    new = [x if x is s else own(x) for x, s in zip(new, self._static)]
+                    extra = [own(x) for x in leaves(out[n:])]
+                    for x, s in zip(new, self._static):
+                        if x is not s:
+                            s.copy_(x)
         self.launches = launch_delta(before, launch_counts())
         add_launches(self.launches, -1)
         self.graph = graph
+        self.segments, self.nodes = tuple(nodes.segments), nodes.nodes
         self._out = (*state, *unflatten(tuple(out[n:]), extra))
 
     def __call__(self, *state):
         given = leaves(state)
         self._check(given)
         if self._calls < WARMUP:
-            out = self._warm(state)
+            with telemetry.setup(self.name, self._device), telemetry.span("graphs.warmup"):
+                out = self._warm(state)
             self._calls += 1
             return out
-        for x, s in zip(given, self._static):
-            if x.data_ptr() != s.data_ptr():
-                s.copy_(x)
         if self.graph is None:
-            self._capture()
-        self.graph.replay()
-        add_launches(self.launches)
+            with telemetry.setup(self.name, self._device), telemetry.span("graphs.capture"):
+                self._capture()
+        with telemetry.span("graphs.replay") as replay:
+            copies = 0
+            for x, s in zip(given, self._static):
+                if x.data_ptr() != s.data_ptr():
+                    s.copy_(x)
+                    copies += 1
+            self.graph.replay()
+            add_launches(self.launches)
+            replay.replayed(self.name, self.segments, self.nodes, copies)
         return self._out
 
-    def also(self, step) -> "Graphed":
+    def also(self, step, name: str | None = None) -> "Graphed":
         """``step`` over this graph's state buffers and in its memory pool:
         graphs called in turn (the MPC tick and the plain tick) then hand
-        each other the state with no copy.  Call them one at a time."""
-        return Graphed(step, self._state, self.pool)
+        each other the state with no copy.  Call them one at a time.
+        ``name`` as ``capture``'s."""
+        return Graphed(step, self._state, self.pool, name)
 
 
-def capture(step, *state):
+def _qualname(step) -> str:
+    return getattr(step, "__qualname__", type(step).__qualname__)
+
+
+def capture(step, *state, name: str | None = None):
     """``step`` (see the module's note) as a ``Graphed`` for CUDA tensors,
     which runs its first ``WARMUP`` calls eagerly and captures on the next;
     ``step`` itself for CPU tensors.  ``state`` gives the
     structure, shapes and dtypes of the graph's state buffers, which are
-    its own; every call passes the state it runs on."""
+    its own; every call passes the state it runs on.  ``name`` names the
+    graph in its set-up records and replay log (default: the step's
+    qualified name)."""
     tensors = leaves(state)
     if not tensors or not all(isinstance(t, torch.Tensor) for t in tensors):
         raise TypeError("the state must be trees of tensors")
@@ -209,4 +242,4 @@ def capture(step, *state):
         return step
     static = unflatten(state, [torch.empty_like(t, memory_format=torch.contiguous_format)
                                for t in tensors])
-    return Graphed(step, tuple(static), torch.cuda.graph_pool_handle())
+    return Graphed(step, tuple(static), torch.cuda.graph_pool_handle(), name)

@@ -25,6 +25,7 @@ from quad_periodic_mpc_tpu_torch.models.a1 import A1
 from quad_periodic_mpc_tpu_torch.ops import discretize
 from quad_periodic_mpc_tpu_torch.ops.rotations import rpy_to_quat, rpy_to_rotmat
 from quad_periodic_mpc_tpu_torch.utils.consts import const
+from quad_periodic_mpc_tpu_torch.utils.telemetry import spanned
 
 
 class DisturbanceParams(NamedTuple):
@@ -104,6 +105,7 @@ def disturbance_wrench(dist, t: torch.Tensor, mass: float) -> torch.Tensor:
     return torch.stack([zeros, zeros, zeros, fx / mass, zeros, zeros], dim=-1)
 
 
+@spanned("srb_sim.step")
 def step(
     plant: PlantState,
     forces: torch.Tensor,
@@ -138,6 +140,7 @@ def step(
     return PlantState(x=x_new, p_feet=feet_new, t=plant.t + dt)
 
 
+@spanned("srb_sim.observe")
 def observe(plant: PlantState):
     """PlantState -> controller Observation (cheater-mode ground truth)."""
     from quad_periodic_mpc_tpu_torch.control.mpc import Observation

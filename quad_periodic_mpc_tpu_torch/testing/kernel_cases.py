@@ -124,6 +124,21 @@ def solve_case(B: int, h: int, seed: int, device="cuda", iters: int = 30,
     return (args, kw, sw) if with_problem else (args, kw)
 
 
+def srb_rescue_case(B: int, h: int, seed: int, device="cuda", iters: int = 30):
+    """Inputs of ``fused_stagewise_solve_srb`` on which the odd instances'
+    warm Newton-Schulz seeds fail the 2e-3 gate at every warm stage and the
+    even instances' pass it at every one (``stats["rescued"]`` is
+    (B // 2) (h - 1) in the plain version): ``stagewise_case`` with Q
+    scaled by 1e3 and the odd instances' feet 10x as far from the body,
+    which turns Quu from stage to stage.  At seed 3, B = 4, h = 10 the
+    gate's residuals lie 12 % or more from 2e-3 on either side."""
+    args, kw = stagewise_case(B, h, seed, device=device, iters=iters)
+    args[1] = args[1].clone()
+    args[1][1::2] *= 10.0                                # r_feet
+    args[6] = 1e3 * args[6]                              # Q
+    return [a.contiguous() for a in args], kw
+
+
 def rescue_case(B: int, h: int, seed: int, device="cuda", iters: int = 30):
     """Inputs of ``fused_stagewise_solve`` with ``srb_ad=False`` whose warm
     Newton-Schulz seeds fail the 2e-3 gate, so that the cold restart runs

@@ -40,6 +40,9 @@ inline int cudaGetLastError() { return 0; }
 inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
 inline float __fdividef(float a, float b) { return a / b; }
 inline float __fmul_rn(float a, float b) { return a * b; }   // never contracted
+inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_RELAXED);
+}
 
 inline uint32_t __float_as_uint(float f) {
   uint32_t u;

@@ -148,6 +148,26 @@ def test_stagewise_kernel(emulated):
         assert _maxdiff(g, w) < tol
 
 
+def test_stagewise_kernel_counts_the_plain_versions_rescues(emulated, monkeypatch):
+    """The fused-build kernel's rescue counter on inputs whose odd
+    instances restart every warm stage cold (KC.srb_rescue_case): it adds
+    what the plain version's stats["rescued"] says, and the outputs are
+    bit for bit those of a launch that counts nothing (a null counter)."""
+    args, kw = KC.srb_rescue_case(4, 10, seed=3, device="cpu")
+    kw.update(over_relax=1.6, dt=0.026, mass=12.0, i_inv_diag=(1 / 0.07, 1 / 0.26, 1 / 0.242))
+    monkeypatch.setattr(SK, "RESCUES", {})
+    got = SK._fused_stagewise_solve_srb_cuda(*args, **kw)
+    stats = {}
+    SK.fused_stagewise_solve_srb_reference(*args, **kw, stats=stats)
+    assert stats["rescued"] == 2 * 9
+    assert SK.rescues() == stats["rescued"]
+    monkeypatch.setattr(SK, "_rescue_counter", lambda device: None)
+    uncounted = SK._fused_stagewise_solve_srb_cuda(*args, **kw)
+    assert SK.rescues() == stats["rescued"]
+    for g, w in zip(got, uncounted):
+        assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize("variant", ["shared_c", "per_step_c", "dense_ad"])
 def test_stagewise_solve_kernel(emulated, variant):
     """The caller-built solve, structured Ad with a shared and a per-stage
