@@ -18,7 +18,12 @@ result line) when it fails:
    tick's model evaluation, contact kinematics, WBC and plant substeps at
    B = 256 (the full stack's batch), 1, 37, 16 and 2, from seeded numpy inputs,
    the model evaluation, WBC and plant kernels timed at B = 1 as well (the
-   single robot);
+   single robot); and the SRB plant step (srb_sim.step's kernel) at
+   B = 32,768 (the trot cell's) and 2048, with the x-force and the
+   six-component disturbance, in float32 (timed) and float64.  Its launches
+   are read on each srb-loop path run in this process (exactly one a period
+   on the main path's timed periods; on the graphs path the eager warm-ups,
+   as it counts no capture or replay), none of which may be 0;
 3. drive the slice-1 main path: the walking trot of bench.py (vx = 0.3,
    gait phases spread over the batch, reference disturbance) at batch
    2048, h = 10, ADMM-30 in the fused stagewise kernel, as MPC periods of
@@ -332,6 +337,9 @@ FS_BATCH, FS_VX, FS_PERIODS, FS_WARM, FS_TIMED = 256, 0.15, 45, 3, 10
 # (and the dry run's tier 3: 16 instances, 2 a chunk)
 TICK_CASES = (FS_BATCH, 1, 37, 16, 2)
 B1_CHAINS, B1_PERIODS = 10, 2
+# the SRB plant step (srb_sim.step on a card): the trot cell's batch and the
+# main path's; x' to testing/kernel_cases.SRB_PLANT_TOL, feet and t exactly
+SRB_PLANT_CASES = (32768, BATCH)
 # kernel vs plain version, the tolerances of the reference's kernel tests
 # (tests/test_kinematics_kernel.py): f32 sums in another order.  The model
 # evaluation's, the WBC's and the plant's are testing/kernel_cases.MODEL_TOL,
@@ -902,6 +910,21 @@ def kf_flops() -> int:
     return predict + combine + spd_inv_flops(NY) + solve_x + solve_P + 8 * NX * NX
 
 
+def srb_plant_flops(wrench: bool) -> int:
+    """Per instance, from csrc/srb_plant.cu: R from rpy (16), the four feet's
+    u, r, force sum and r x u (84), c_omega and c_v (42), the ZOH (57), t'
+    (1), and the disturbance: six sinusoids of 5, or the x-force's one with
+    its divide, 6; the sines and cosines are not counted."""
+    return 200 + (30 if wrench else 6)
+
+
+def srb_plant_bytes(B: int, wrench: bool) -> int:
+    """Read once: x (13), feet, forces, targets (12 each), stance (4), t and
+    the disturbance's four parameters (one or six each); written once: x',
+    feet' and t'.  336 B an instance with the x-force."""
+    return 4 * B * (13 + 36 + 4 + 1 + 4 * (6 if wrench else 1) + 13 + 12 + 1)
+
+
 def admm_flops(n: int, m: int, iters: int) -> int:
     """Per instance, from csrc/admm.cu's loops: rhs (12 a variable), the
     K^{-1} product (2 n^2), the x update (3 a variable) and the z / y / w row
@@ -1316,6 +1339,71 @@ def compare_tick_kernels(device, card: str) -> dict:
     return records
 
 
+def compare_srb_plant(device, card: str) -> dict:
+    """The SRB plant step's kernel (srb_sim.step_kernel) against
+    srb_sim.step_dense at SRB_PLANT_CASES, with the x-force and the
+    six-component disturbance, in float32 (each timed, beside the plain
+    version) and float64, to testing/kernel_cases.SRB_PLANT_TOL.  Returns
+    its record; the time is the trot cell's (B = 32,768, the x-force)."""
+    import torch
+
+    from quad_periodic_mpc_tpu_torch.config import MPCConfig
+    from quad_periodic_mpc_tpu_torch.sim import srb_sim as S
+    from quad_periodic_mpc_tpu_torch.testing import kernel_cases as KC
+
+    cfg, dt = MPCConfig(), 0.002
+    shapes = []
+    for i, (B, wrench, dtype) in enumerate(
+            (B, w, d) for B in SRB_PLANT_CASES for w in (False, True)
+            for d in (torch.float32, torch.float64)):
+        args = KC.srb_plant_case(B, seed=200 + i, device=device, wrench=wrench, dtype=dtype)
+        got = S.step_kernel(*args, cfg, dt)
+        want = S.step_dense(*args, cfg, dt)
+        torch.cuda.synchronize()
+        err = _maxdiff(got.x, want.x)
+        rel = float(((got.x - want.x).abs() / (1 + want.x.abs())).max())
+        bad = KC.srb_plant_mismatches(got, want)
+        form = "WrenchDisturbance" if wrench else "x-force"
+        tol = KC.SRB_PLANT_TOL[dtype]
+        print(f"[kernel] srb_plant_step B={B} {form} {str(dtype)[6:]}: max|dx'|={err:.3g}, "
+              f"max|dx'|/(1+|x'|)={rel:.3g} (tol {tol}), feet and t "
+              f"{'equal' if not {'p_feet', 't'} & set(bad) else 'NOT equal'}")
+        check(all(bool(torch.isfinite(a).all()) for a in got),
+              f"srb_plant_step output not finite at B={B} ({form}, {dtype})")
+        check(not bad, f"srb_plant_step disagrees with its plain version in {bad} at B={B} "
+              f"({form}, {dtype})")
+        if dtype != torch.float32:
+            continue
+        ms, call_ms = kernel_ms(lambda: S.step_kernel(*args, cfg, dt), 20,
+                                "srb_plant_step_kernel")
+        plain_ms = time_ms(lambda: S.step_dense(*args, cfg, dt), 5)
+        bound_ms, bound_by = bound(B * srb_plant_flops(wrench), srb_plant_bytes(B, wrench))
+        shapes.append({"B": B, "disturbance": form, "ms": ms, "call_ms": call_ms,
+                       "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                       "max_abs_err": err})
+        print(f"[kernel] srb_plant_step B={B} {form}: kernel {ms:.5f} ms on the device "
+              f"({call_ms:.4f} ms per call), plain version {plain_ms:.3f} ms (eager), bound "
+              f"{bound_ms:.5f} ms ({bound_by}; {srb_plant_bytes(B, wrench)} B) on {card}")
+    main = shapes[0]
+    return {
+        "name": "srb_plant_step", "route": "cuda",
+        "source": "quad_periodic_mpc_tpu_torch/csrc/srb_plant.cu", "replaces": None,
+        "launches": 0, "max_abs_err": max(r["max_abs_err"] for r in shapes),
+        "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": None, "shapes": shapes,
+    }
+
+
+def take_srb_plant_launches() -> int:
+    """The SRB plant kernel's launches since the last call, its count set to
+    0.  Graph captures and replays are not counted (it is not one of
+    runtime/graphs' counted wrappers), eager calls are."""
+    from quad_periodic_mpc_tpu_torch.ops.cuda import srb_plant_kernel as SPK
+
+    n, SPK.LAUNCHES = SPK.LAUNCHES, 0
+    return n
+
+
 def trot_inputs(device, batch: int = BATCH, horizon: int = HORIZON,
                 formulation: str = "stagewise"):
     """The bench's walking trot (bench.py make_inputs) on the port."""
@@ -1476,6 +1564,7 @@ def main_path(device, card: str) -> dict:
     torch.cuda.synchronize()
 
     reset_stagewise_counts()
+    take_srb_plant_launches()
     times = []
     all_finite = True
     for _ in range(TIMED_PERIODS):
@@ -1486,12 +1575,16 @@ def main_path(device, card: str) -> dict:
         all_finite &= bool(torch.isfinite(forces).all())
     counts = dict(SK.LAUNCHES)
     launches = counts["fused_stagewise_solve_srb"]
+    plant_steps = take_srb_plant_launches()
     print(f"[main path] bench trot B={BATCH} h={HORIZON} ADMM-{ADMM_ITERS}: "
           f"{TIMED_PERIODS} periods, median {statistics.median(times):.2f} ms/period "
-          f"(min {min(times):.2f}, max {max(times):.2f}), kernel launches {launches} "
-          f"on {card}")
+          f"(min {min(times):.2f}, max {max(times):.2f}), kernel launches {launches}, "
+          f"srb_plant_step {plant_steps} on {card}")
     check(launches == TIMED_PERIODS and sum(counts.values()) == launches,
           f"expected {TIMED_PERIODS} fused-build launches and no other, counted {counts}")
+    check(plant_steps == TIMED_PERIODS, f"expected {TIMED_PERIODS} srb_plant_step launches "
+          f"(bench.py's one plant step a period), counted {plant_steps}")
+    counts["srb_plant_step"] = plant_steps
     check(all_finite, "non-finite forces on the main path")
     check(bool(torch.isfinite(plant.x).all()), "non-finite plant state")
 
@@ -4918,7 +5011,10 @@ def main() -> int:
         build_kernels()
         record = compare_kernels(device, card)
         tick_records = compare_tick_kernels(device, card)
+        srb_plant = compare_srb_plant(device, card)
+        plant_paths = srb_plant["launches_by_path"] = {}
         counts = main_path(device, card)
+        srb_plant["launches"] = counts["srb_plant_step"]
         srb_shapes = {s["path"]: s for s in record["shapes"]}
         record["launches"] = counts["fused_stagewise_solve_srb"]
         srb_shapes["main path"]["launches"] = record["launches"]
@@ -4930,6 +5026,7 @@ def main() -> int:
                 srb_shapes["full stack"]["launches"] = n
         single_robot(device, card)
         solve_records = compare_solve_kernels(device, card)
+        take_srb_plant_launches()
         counts = walking_line(device, card, "predictive", BATCH, HORIZON, ADMM_ITERS,
                               PREDICTIVE_WARM, LINE_TIMED, "fused_stagewise_solve",
                               predictive=True)
@@ -4942,6 +5039,7 @@ def main() -> int:
             if f"line {line[0]}" in srb_shapes:
                 srb_shapes[f"line {line[0]}"]["launches"] = counts["fused_stagewise_solve_srb"]
         solve_records["srb_build_dump"]["launches"] = dumps
+        plant_paths["walking lines"] = take_srb_plant_launches()
         for rec in [*solve_records.values(),
                     *(s for s in record["shapes"] if s["path"] not in SWEEP_SHAPES)]:
             check(rec["launches"] > 0, f"{rec.get('name', rec.get('path'))} was launched "
@@ -4949,13 +5047,17 @@ def main() -> int:
         slice4_records = slice4(device, card)
         by_name = {r["name"]: r for r in (record, *tick_records.values(),
                                           *solve_records.values(), *slice4_records.values())}
+        take_srb_plant_launches()
         for path, counts in [*slice5(device, card).items(),
                              ("terrain", terrain_experiment(device, card))]:
             for name, n in counts.items():
                 check(n > 0, f"{name} was launched no time on the {path} path")
                 by_name[name].setdefault("launches_by_path", {})[path] = n
+        plant_paths["tunable, weight sweep, go1"] = take_srb_plant_launches()   # in this process
         elevation_mapping(device, card)
+        take_srb_plant_launches()
         by_kernel, by_shape, sweep_figures = sweeps(device, card)
+        plant_paths["sweeps"] = take_srb_plant_launches()
         for name, n in by_kernel.items():
             by_name[name].setdefault("launches_by_path", {})["sweeps"] = n
         for path, n in by_shape.items():
@@ -4968,7 +5070,9 @@ def main() -> int:
         for name, n in stand["launches"].items():
             check(n > 0, f"{name} was launched no time on the force stand path")
             by_name[name].setdefault("launches_by_path", {})["force stand"] = n
+        take_srb_plant_launches()
         surfaces = slice9(device, card)
+        plant_paths["cli"] = take_srb_plant_launches()
         for path, names in (("cli", ("fused_stagewise_solve_srb", "fused_stagewise_solve",
                                      "fused_admm_iterations")),
                             ("golden", ("fused_stagewise_solve", "fused_admm_iterations"))):
@@ -4978,6 +5082,7 @@ def main() -> int:
             for name, n in surfaces[path].items():
                 by_name[name].setdefault("launches_by_path", {})[path] = n
         graphed = slice10(device, card)
+        plant_paths["graphs"] = take_srb_plant_launches()       # the eager warm-ups
         for name in ("fused_stagewise_solve_srb", "fused_stagewise_solve", "fused_model_eval",
                      "fused_wbc", "fused_substeps"):
             check(graphed.get(name, 0) > 0, f"{name} was launched no time on the graphs path")
@@ -4985,6 +5090,10 @@ def main() -> int:
             by_name[name].setdefault("launches_by_path", {})["graphs"] = n
         for name, n in slice12(device, card).items():
             by_name[name].setdefault("launches_by_path", {})["evidence"] = n
+        plant_paths["evidence"] = take_srb_plant_launches()
+        check(srb_plant["launches"] > 0, "srb_plant_step was launched on no driven path")
+        for path, n in plant_paths.items():
+            check(n > 0, f"srb_plant_step was launched no time on the {path} path")
         if "jax" in sys.modules or "quad_periodic_mpc_tpu" in sys.modules:
             raise SmokeFailure("JAX or the JAX package was imported")
     except SmokeFailure as e:
@@ -4993,7 +5102,7 @@ def main() -> int:
     print("[sweep figures] " + json.dumps(sweep_figures))
     print(card)
     print(json.dumps({"kernels": [record, *tick_records.values(), *solve_records.values(),
-                                  *slice4_records.values()]}))
+                                  *slice4_records.values(), srb_plant]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -82,13 +82,14 @@ def load(source: str) -> ctypes.CDLL:
         return _libs[source]
 
 
-def check(name: str, t, shape: tuple, device) -> None:
-    """Raise unless ``t`` is a contiguous float32 tensor of ``shape`` on
-    ``device`` (what every kernel's C interface takes)."""
+def check(name: str, t, shape: tuple, device, dtype=None) -> None:
+    """Raise unless ``t`` is a contiguous tensor of ``dtype`` (float32 unless
+    given) and ``shape`` on ``device`` (what every kernel's C interface takes)."""
     import torch
 
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: expected float32, got {t.dtype}")
+    dtype = torch.float32 if dtype is None else dtype
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if t.device != device:

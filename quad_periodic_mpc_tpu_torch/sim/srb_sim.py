@@ -23,6 +23,7 @@ from quad_periodic_mpc_tpu_torch.config import MPCConfig
 from quad_periodic_mpc_tpu_torch.models import srb
 from quad_periodic_mpc_tpu_torch.models.a1 import A1
 from quad_periodic_mpc_tpu_torch.ops import discretize
+from quad_periodic_mpc_tpu_torch.ops.cuda import srb_plant_kernel
 from quad_periodic_mpc_tpu_torch.ops.rotations import rpy_to_quat, rpy_to_rotmat
 from quad_periodic_mpc_tpu_torch.utils.consts import const
 from quad_periodic_mpc_tpu_torch.utils.telemetry import spanned
@@ -120,7 +121,33 @@ def step(
     reactions (only stance feet push); swing feet follow p_foot_des.
     ground_fn: optional terrain surface ``xy (..., 2) -> z (...,)``; a foot
     commanded below it is clamped onto it (early touchdown against a riser
-    face, the RaiSim stairs scene's case for a terrain-blind controller)."""
+    face, the RaiSim stairs scene's case for a terrain-blind controller).
+    On a card ``step_kernel``, on the CPU ``step_dense``."""
+    advance = step_kernel if plant.x.device.type == "cuda" else step_dense
+    new = advance(plant, forces, p_foot_des, stance_mask, dist, cfg, dt)
+    feet_new = new.p_feet
+    if ground_fn is not None:
+        gz = ground_fn(feet_new[..., 0:2])
+        feet_new = torch.cat(
+            [feet_new[..., 0:2], torch.maximum(feet_new[..., 2], gz)[..., None]], dim=-1)
+    return new._replace(p_feet=feet_new)
+
+
+def step_kernel(plant: PlantState, forces, p_foot_des, stance_mask, dist, cfg: MPCConfig,
+                dt: float) -> PlantState:
+    """``step_dense``'s step as one launch of a CUDA kernel
+    (``ops/cuda/srb_plant_kernel``): the exact ZOH applied matrix-free."""
+    return PlantState(*srb_plant_kernel.srb_plant_step(
+        plant.x, plant.p_feet, plant.t, forces, p_foot_des, stance_mask, tuple(dist),
+        isinstance(dist, WrenchDisturbance), cfg.mass, cfg.inertia_body, dt))
+
+
+def step_dense(plant: PlantState, forces, p_foot_des, stance_mask, dist, cfg: MPCConfig,
+               dt: float) -> PlantState:
+    """``step`` without the terrain clamp, in dense form: A, B, Qc of
+    ``srb.ct_dynamics`` at the current orientation, discretized by
+    ``discretize.nilpotent_zoh``.  The CPU's step, and the plain version the
+    kernel is held to."""
     rpy = plant.x[..., 0:3]
     p = plant.x[..., 3:6]
     R = rpy_to_rotmat(rpy)
@@ -133,10 +160,6 @@ def step(
     mv = lambda M, v: (M @ v[..., None])[..., 0]
     x_new = mv(Adt, plant.x) + mv(Bdt, u) + mv(Qdt, w)
     feet_new = torch.where(stance_mask[..., None] > 0.5, plant.p_feet, p_foot_des)
-    if ground_fn is not None:
-        gz = ground_fn(feet_new[..., 0:2])
-        feet_new = torch.cat(
-            [feet_new[..., 0:2], torch.maximum(feet_new[..., 2], gz)[..., None]], dim=-1)
     return PlantState(x=x_new, p_feet=feet_new, t=plant.t + dt)
 
 

@@ -19,6 +19,7 @@ from quad_periodic_mpc_tpu_torch.ops import constraints, gait, linalg, problem, 
 from quad_periodic_mpc_tpu_torch.ops.cuda import kinematics_kernel
 from quad_periodic_mpc_tpu_torch.ops.rotations import quat_to_rotmat, rpy_to_quat
 from quad_periodic_mpc_tpu_torch.sim import articulated_sim as art
+from quad_periodic_mpc_tpu_torch.sim import srb_sim
 
 Q_STAND = np.array([0.0, 0.8, -1.6] * 4, np.float32)
 # stance patterns of the reference's WBC kernel test
@@ -234,6 +235,52 @@ def plant_case(B: int, seed: int = 0, device="cuda", penetration: float = 3e-3):
     cache = art.model_cache(plant, mc)
     info = fb.contact_jacobians(plant.fb, mc)
     return plant, tau, cache, info.Jc, info.p_foot
+
+
+# SRB plant kernel vs its plain version (srb_sim.step_dense): x' to
+# SRB_PLANT_TOL[dtype] * (1 + |x'|) entry by entry (rounding: the kernel
+# applies the ZOH matrix-free, the plain version through dense GEMMs, and
+# |x'| runs to ~10 in position and 9.8 in the gravity state); feet and t
+# exactly (a select and one add).
+SRB_PLANT_TOL = {torch.float32: 1e-6, torch.float64: 2e-15}
+SRB_STANCES = ("mixed", "all", "none")
+
+
+def srb_plant_mismatches(got, want) -> list:
+    """The fields of a kernel step's ``PlantState`` outside SRB_PLANT_TOL of
+    the plain version's (empty where it matches)."""
+    tol = SRB_PLANT_TOL[want.x.dtype]
+    bad = [] if bool(((got.x - want.x).abs() <= tol * (1 + want.x.abs())).all()) else ["x"]
+    return bad + [f for f in ("p_feet", "t") if not torch.equal(getattr(got, f), getattr(want, f))]
+
+
+def srb_plant_case(B: int, seed: int = 0, device="cuda", stance: str = "mixed",
+                   wrench: bool = False, t_max: float = 100.0, dtype=torch.float32):
+    """(plant, forces, p_foot_des, stance_mask, dist) of one SRB plant step:
+    rpy up to +-0.5 rad, the body up to 5 m from the origin, feet near the
+    hips, stance forces up to 120 N, t up to t_max s, and the paper's
+    x-force disturbance or a six-component ``WrenchDisturbance``; float32
+    values held in ``dtype``."""
+    t = lambda a: _t(a, device, dtype)
+    rng = np.random.default_rng(seed)
+    u = lambda lo, hi, *shape: rng.uniform(lo, hi, (B,) + shape)
+    p = np.concatenate([u(-5, 5, 2), u(0.2, 0.35, 1)], -1)
+    x = np.concatenate([u(-0.5, 0.5, 3), p, u(-1, 1, 3), u(-1, 1, 3), np.full((B, 1), -9.8)], -1)
+    hips = np.array([[0.18, -0.13, 0], [0.18, 0.13, 0], [-0.18, -0.13, 0], [-0.18, 0.13, 0]])
+    feet = p[:, None, :] * np.array([1, 1, 0]) + hips + u(-0.05, 0.05, 4, 3) * [1, 1, 0]
+    forces = np.concatenate([u(-20, 20, 4, 2), u(0, 120, 4, 1)], -1)
+    des = feet + u(-0.05, 0.05, 4, 3)
+    mask = {"mixed": rng.integers(0, 2, (B, 4)), "all": np.ones((B, 4)),
+            "none": np.zeros((B, 4))}[stance]
+    plant = srb_sim.PlantState(x=t(x), p_feet=t(feet), t=t(u(0, t_max)))
+    if wrench:
+        n = (6,)
+        dist = srb_sim.WrenchDisturbance(t(u(-1, 1, *n)), t(u(0, 2, *n)), t(u(0.2, 0.5, *n)),
+                                         t(u(0, 2 * np.pi, *n)))
+    else:
+        dist = srb_sim.DisturbanceParams(t(np.full(B, -10.0)), t(u(10, 20)), t(u(0.2, 0.5)),
+                                         t(u(0, 2 * np.pi)))
+    return plant, t(forces), t(des), t(mask), dist
 
 
 # Fused KF kernel vs its plain version, max abs error over x' and P'.  On

@@ -40,6 +40,7 @@ inline int cudaGetLastError() { return 0; }
 inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
 inline float __fdividef(float a, float b) { return a / b; }
 inline float __fmul_rn(float a, float b) { return a * b; }   // never contracted
+inline double __dmul_rn(double a, double b) { return a * b; }
 inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
   return __atomic_fetch_add(p, v, __ATOMIC_RELAXED);
 }

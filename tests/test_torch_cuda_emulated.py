@@ -23,14 +23,22 @@ import torch
 # one intra-op thread: pytest -n workers share the cores, a thread per core in each oversubscribes
 torch.set_num_threads(1)
 
+from quad_periodic_mpc_tpu_torch.config import (
+    ADMMConfig, EstimatorConfig, LoopConfig, MPCConfig, SwingConfig,
+)
+from quad_periodic_mpc_tpu_torch.control import loop as L
+from quad_periodic_mpc_tpu_torch.control import mpc as M
 from quad_periodic_mpc_tpu_torch.control.wbc import WBCGains
 from quad_periodic_mpc_tpu_torch.models import floating_base as fb
+from quad_periodic_mpc_tpu_torch.ops import gait as G
 from quad_periodic_mpc_tpu_torch.ops.cuda import admm_kernel as AK
 from quad_periodic_mpc_tpu_torch.ops.cuda import kf_kernel as FK
 from quad_periodic_mpc_tpu_torch.ops.cuda import kinematics_kernel as KK
 from quad_periodic_mpc_tpu_torch.ops.cuda import plant_kernel as PK
+from quad_periodic_mpc_tpu_torch.ops.cuda import srb_plant_kernel as SPK
 from quad_periodic_mpc_tpu_torch.ops.cuda import stagewise_kernel as SK
 from quad_periodic_mpc_tpu_torch.ops.cuda import wbc_kernel as WK
+from quad_periodic_mpc_tpu_torch.sim import srb_sim as S
 from quad_periodic_mpc_tpu_torch.sim.articulated_sim import ContactParams
 from quad_periodic_mpc_tpu_torch.testing import kernel_cases as KC
 
@@ -135,6 +143,112 @@ def test_plant_kernel(emulated, B, substeps):
     assert _maxdiff(pb.anchor, pa.anchor) < KC.PLANT_TOL["anchor"]
     assert torch.equal(pb.in_contact, pa.in_contact)
     assert torch.equal(pb.t, pa.t)
+
+
+
+@pytest.mark.parametrize("wrench", [False, True])
+@pytest.mark.parametrize("stance", KC.SRB_STANCES)
+@pytest.mark.parametrize("B", [1, 37, 300])
+def test_srb_plant_kernel(emulated, B, stance, wrench):
+    """One SRB plant step against the dense plain version, rpy up to
+    +-0.5 rad, t up to 100 s, with the x-force and the six-component
+    disturbance; B = 37 and 300 leave the last 128-instance block ragged.
+    One launch per call."""
+    args = KC.srb_plant_case(B, seed=B, device="cpu", stance=stance, wrench=wrench)
+    before = SPK.LAUNCHES
+    got = S.step_kernel(*args, MPCConfig(), 0.002)
+    assert SPK.LAUNCHES == before + 1
+    assert KC.srb_plant_mismatches(got, S.step_dense(*args, MPCConfig(), 0.002)) == []
+
+
+@pytest.mark.parametrize("wrench", [False, True])
+@pytest.mark.parametrize("B", [1, 37, 300])
+def test_srb_plant_kernel_float64(emulated, B, wrench):
+    """The double kernel (64 instances a block) against the plain version
+    in float64, to SRB_PLANT_TOL[float64]; one launch per call."""
+    args = KC.srb_plant_case(B, seed=B + 1, device="cpu", wrench=wrench, dtype=torch.float64)
+    before = SPK.LAUNCHES
+    got = S.step_kernel(*args, MPCConfig(), 0.002)
+    assert SPK.LAUNCHES == before + 1
+    assert got.x.dtype == torch.float64
+    assert KC.srb_plant_mismatches(got, S.step_dense(*args, MPCConfig(), 0.002)) == []
+
+
+def test_srb_plant_kernel_refuses_other_dtypes(emulated):
+    """A float16 or mixed-dtype step raises TypeError; nothing launches."""
+    plant, forces, des, stance, dist = KC.srb_plant_case(3, device="cpu")
+    before = SPK.LAUNCHES
+    with pytest.raises(TypeError):
+        S.step_kernel(plant._replace(x=plant.x.half()), forces, des, stance, dist,
+                                 MPCConfig(), 0.002)
+    with pytest.raises(TypeError):
+        S.step_kernel(plant, forces.double(), des, stance, dist, MPCConfig(), 0.002)
+    assert SPK.LAUNCHES == before
+
+
+def _riser(xy):
+    """A 5 cm step up at x = 0."""
+    return torch.where(xy[..., 0] > 0, 0.05, 0.0).to(xy.dtype)
+
+
+@pytest.mark.parametrize("route", ["cpu", "card float64", "card float32"])
+def test_srb_plant_routes_and_ground_clamp(emulated, monkeypatch, route):
+    """srb_sim.step on CPU tensors takes step_dense and launches nothing;
+    with the card's route (the kernel in step_dense's place) a float32 and
+    a float64 step each launch the kernel once.  After each the feet are
+    clamped onto the ground function's surface."""
+    dtype = torch.float64 if route == "card float64" else torch.float32
+    plant, forces, des, stance, dist = KC.srb_plant_case(37, seed=9, device="cpu",
+                                                         stance="none", dtype=dtype)
+    want = S.step_dense(plant, forces, des, stance, dist, MPCConfig(), 0.002)
+    if route != "cpu":
+        monkeypatch.setattr(S, "step_dense", S.step_kernel)
+    launches = SPK.LAUNCHES
+    got = S.step(plant, forces, des, stance, dist, MPCConfig(), 0.002, ground_fn=_riser)
+    assert SPK.LAUNCHES - launches == (route != "cpu")
+    assert got.x.dtype == dtype
+    floor = _riser(des[..., 0:2])
+    clamped = want._replace(p_feet=torch.cat(
+        [want.p_feet[..., 0:2], torch.maximum(want.p_feet[..., 2], floor)[..., None]], -1))
+    assert KC.srb_plant_mismatches(got, clamped) == []
+    assert bool((got.p_feet[..., 2] >= floor).all())
+    assert bool((got.p_feet[..., 2] > des[..., 2]).any())      # some foot was lifted
+
+
+def test_srb_plant_kernel_in_the_closed_loop(emulated, monkeypatch):
+    """Three trot periods of loop.period_step at B = 4 with the kernel as
+    the plant against the plain version: the plant state within the trot
+    cell's plant limit (3e-3), no instance fallen (body above 0.15 m), and
+    one launch a tick."""
+    B = 4
+    f32 = dict(dtype=torch.float32, device="cpu")
+    plant = S.init_plant((B,), body_height=0.29, device="cpu")
+    ctrl = M.init_state((B,), S.observe(plant), horizon=10, formulation="stagewise")
+    ctrl = ctrl._replace(iteration=(torch.arange(B, dtype=torch.int32) * 53) % 208,
+                         x_vel_des=torch.full((B,), 0.3, **f32))
+    cmd = M.Command(vx=torch.full((B,), 0.3, **f32), vy=torch.zeros(B, **f32),
+                    yaw_rate=torch.zeros(B, **f32), body_height=torch.full((B,), 0.29, **f32))
+    dist = S.DisturbanceParams(torch.full((B,), -10.0, **f32), torch.linspace(10, 20, B),
+                               torch.linspace(0.2, 0.5, B), torch.linspace(0, 6, B))
+    step = L.period_step(cmd, G.preset("trotting", device="cpu"), dist, MPCConfig(horizon=10),
+                         LoopConfig(), EstimatorConfig(),
+                         ADMMConfig(iterations=30, backend="pallas", formulation="stagewise"),
+                         swing_cfg=SwingConfig())
+
+    def run():
+        carry = L.RolloutCarry(plant, ctrl)
+        for _ in range(3):
+            carry, _ = step(carry)
+        return carry.plant
+
+    want = run()
+    monkeypatch.setattr(S, "step_dense", S.step_kernel)
+    before = SPK.LAUNCHES
+    got = run()
+    assert SPK.LAUNCHES == before + 3 * LoopConfig().iterations_between_mpc
+    gap = max(_maxdiff(got.x[..., :12], want.x[..., :12]), _maxdiff(got.p_feet, want.p_feet))
+    assert gap <= 3e-3
+    assert bool(torch.isfinite(got.x).all()) and bool((got.x[:, 5] > 0.15).all())
 
 
 def test_stagewise_kernel(emulated):

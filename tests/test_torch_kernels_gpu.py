@@ -15,14 +15,18 @@ import torch
 # one intra-op thread: pytest -n workers share the cores, a thread per core in each oversubscribes
 torch.set_num_threads(1)
 
+from quad_periodic_mpc_tpu_torch.config import MPCConfig
 from quad_periodic_mpc_tpu_torch.control.wbc import WBCGains
 from quad_periodic_mpc_tpu_torch.models import floating_base as fb
 from quad_periodic_mpc_tpu_torch.ops.cuda import admm_kernel as AK
 from quad_periodic_mpc_tpu_torch.ops.cuda import kf_kernel as FK
 from quad_periodic_mpc_tpu_torch.ops.cuda import kinematics_kernel as KK
 from quad_periodic_mpc_tpu_torch.ops.cuda import plant_kernel as PK
+from quad_periodic_mpc_tpu_torch.ops.cuda import srb_plant_kernel as SPK
 from quad_periodic_mpc_tpu_torch.ops.cuda import stagewise_kernel as SK
 from quad_periodic_mpc_tpu_torch.ops.cuda import wbc_kernel as WK
+from quad_periodic_mpc_tpu_torch.runtime import graphs
+from quad_periodic_mpc_tpu_torch.sim import srb_sim as S
 from quad_periodic_mpc_tpu_torch.sim.articulated_sim import ContactParams
 from quad_periodic_mpc_tpu_torch.testing import kernel_cases as KC
 
@@ -266,6 +270,45 @@ def test_plant_kernel_matches_plain_version(cuda, B, substeps):
     assert _maxdiff(pf_b, pf_a) < KC.PLANT_TOL["p_foot"]
     assert _maxdiff(pb.anchor, pa.anchor) < KC.PLANT_TOL["anchor"]
     assert torch.equal(pb.in_contact, pa.in_contact)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wrench", [False, True])
+@pytest.mark.parametrize("B", [32768, 37])
+def test_srb_plant_kernel_matches_plain_version(cuda, B, wrench):
+    """srb_sim.step on the card (one launch) against the dense plain
+    version at the trot cell's B = 32,768 and a ragged B = 37: mixed
+    stances, rpy up to +-0.5 rad, t up to 100 s, both disturbance forms.
+    A float64 step launches the double kernel, held in float64."""
+    cfg = MPCConfig()
+    for dtype in (torch.float32, torch.float64):
+        args = KC.srb_plant_case(B, seed=B + wrench, device=cuda, wrench=wrench, dtype=dtype)
+        before = SPK.LAUNCHES
+        got = S.step(*args, cfg, 0.002)
+        torch.cuda.synchronize()
+        assert SPK.LAUNCHES == before + 1
+        assert got.x.dtype == dtype
+        assert KC.srb_plant_mismatches(got, S.step_dense(*args, cfg, 0.002)) == []
+
+
+@pytest.mark.gpu
+def test_srb_plant_kernel_replays_bit_equal_to_eager(cuda):
+    """srb_sim.step captured in a CUDA graph (runtime/graphs.capture) at
+    B = 32,768: the replay's state bit-equal to the eager kernel's.  The
+    eager warm-up calls are counted launches; the capture and the replays
+    add nothing to LAUNCHES."""
+    plant, *rest = KC.srb_plant_case(32768, seed=7, device=cuda)
+    cfg = MPCConfig()
+    eager = S.step(plant, *rest, cfg, 0.002)
+    graphed = graphs.capture(lambda p: (S.step(p, *rest, cfg, 0.002),), plant)
+    before = SPK.LAUNCHES
+    for _ in range(graphs.WARMUP + 2):
+        (got,) = graphed(plant)
+    torch.cuda.synchronize()
+    assert graphed.graph is not None
+    assert SPK.LAUNCHES == before + graphs.WARMUP
+    for g, w in zip(got, eager):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.gpu
