@@ -76,10 +76,10 @@ def cmd_rollout(args) -> None:
             edge_x=args.terrain_edge, height=args.terrain_step, dtype=dtype, device=device)
         hm = TS.build_map(terr, size=96, resolution=0.03, dtype=dtype)
         ground_fn = lambda xy: TS.ground_z(terr, xy)
-    # on a card the float32 stagewise period in the CUDA kernels replays from
-    # a CUDA graph; the condensed and PDIP periods and the terrain period are
-    # not captured yet and run eagerly
-    captured = (hm is None and not args.f64 and args.solver == "admm"
+    # on a card the float32 stagewise period in the CUDA kernels (on flat
+    # ground or over the terrain) replays from a CUDA graph; the condensed
+    # and PDIP periods are not captured yet and run eagerly
+    captured = (not args.f64 and args.solver == "admm"
                 and args.formulation == "stagewise" and args.backend == "pallas")
     run = L.rollout_graphed if captured else L.rollout
     carry, tr = run(

@@ -16,6 +16,13 @@ CMPCLocomotion driver, src/controllers/CMPC/CMPC_Locomotion.cpp).
 
 The four legs run as one more batch axis: the map gains a singleton leg
 axis, the reference's vmap over legs with the map broadcast.
+
+``FOOTHOLD_MOVED`` counts, on each device, the targets that
+``foothold_update``'s spiral search moved off their own Raibert cell or
+found no valid cell for, and ``FOOTHOLD_SEARCHED`` the targets it searched
+(``foothold_counts()`` reads both).  Each is a counter on the device that
+the update adds to, so every replay of a graph captured after it was made
+counts too.
 """
 
 from __future__ import annotations
@@ -26,6 +33,26 @@ from quad_periodic_mpc_tpu_torch.estimation.kf import plane_body_height
 from quad_periodic_mpc_tpu_torch.ops import gait as gait_ops
 from quad_periodic_mpc_tpu_torch.ops.gait_scheduler import early_contact_handle
 from quad_periodic_mpc_tpu_torch.terrain import heightmap as hmap
+
+# device -> int64 counter on it, made by the first update there outside a
+# capture (an update captured before then is not counted)
+FOOTHOLD_MOVED: dict[str, torch.Tensor] = {}
+FOOTHOLD_SEARCHED: dict[str, torch.Tensor] = {}
+
+
+def _counter(table: dict, device) -> torch.Tensor | None:
+    counter = table.get(str(device))
+    if counter is None and not (device.type == "cuda"
+                                and torch.cuda.is_current_stream_capturing()):
+        counter = table[str(device)] = torch.zeros((), dtype=torch.int64, device=device)
+    return counter
+
+
+def foothold_counts() -> tuple[int, int]:
+    """(moved, searched) foothold targets, summed over the devices (a host
+    read: call it after the work)."""
+    return (sum(int(c) for c in FOOTHOLD_MOVED.values()),
+            sum(int(c) for c in FOOTHOLD_SEARCHED.values()))
 
 
 def pitch_reference(
@@ -106,12 +133,17 @@ def foothold_update(
     0.17; :878-882 clamps only upward).
 
     The grid is world-anchored (``hm.center``), so a frozen map answers the
-    same world-frame lookup.
+    same world-frame lookup.  Every target adds to ``FOOTHOLD_SEARCHED``,
+    and one moved off its cell or with no valid cell to ``FOOTHOLD_MOVED``.
     """
     leg_hm = _per_leg(hm)
-    sel = hmap.select_foothold(leg_hm, pf_raibert, search_radius_m=search_radius_m,
-                               traversability_min=traversability_min,
-                               keep_xy_if_unmoved=True)
+    sel, moved = hmap.select_foothold(leg_hm, pf_raibert, search_radius_m=search_radius_m,
+                                      traversability_min=traversability_min,
+                                      keep_xy_if_unmoved=True, return_moved=True)
+    moved_count = _counter(FOOTHOLD_MOVED, moved.device)
+    if moved_count is not None:
+        moved_count.add_(moved.sum())
+        _counter(FOOTHOLD_SEARCHED, moved.device).add_(moved.numel())
     idx0 = hmap.world_to_index(leg_hm, p0[..., 0:2])
     z0 = hmap.sample(leg_hm.elevation, idx0[..., None, :])[..., 0]
     dz = torch.clamp(sel[..., 2] - z0, max=max_step_height)

@@ -14,7 +14,6 @@ command) and ``ground_fn`` (the plant's true surface).
 
 from __future__ import annotations
 
-import inspect
 from typing import NamedTuple
 
 import torch
@@ -35,7 +34,7 @@ from quad_periodic_mpc_tpu_torch.ops.rotations import quat_to_rpy
 from quad_periodic_mpc_tpu_torch.runtime import graphs
 from quad_periodic_mpc_tpu_torch.sim import srb_sim
 from quad_periodic_mpc_tpu_torch.terrain import heightmap as hmap
-from quad_periodic_mpc_tpu_torch.utils.telemetry import spanned
+from quad_periodic_mpc_tpu_torch.utils.telemetry import span, spanned
 
 
 class RolloutCarry(NamedTuple):
@@ -122,11 +121,12 @@ def terrain_command(heightmap, cmd, obs, terrain_cfg: TerrainLoopConfig = Terrai
     with body_height_from_map off)."""
     if heightmap is None or not terrain_cfg.body_height_from_map:
         return cmd
-    # per-foot lookup: the map center against the foot axis
-    hm_feet = heightmap._replace(center=heightmap.center[..., None, :])
-    idx = hmap.world_to_index(hm_feet, obs.p_feet[..., 0:2])
-    z_ground = hmap.sample(heightmap.elevation, idx).mean(dim=-1)
-    return cmd._replace(body_height=cmd.body_height + z_ground)
+    with span("terrain.command"):
+        # per-foot lookup: the map center against the foot axis
+        hm_feet = heightmap._replace(center=heightmap.center[..., None, :])
+        idx = hmap.world_to_index(hm_feet, obs.p_feet[..., 0:2])
+        z_ground = hmap.sample(heightmap.elevation, idx).mean(dim=-1)
+        return cmd._replace(body_height=cmd.body_height + z_ground)
 
 
 class RolloutTrace(NamedTuple):
@@ -162,6 +162,7 @@ def period_step(
     arguments are ``rollout``'s; ``rollout`` iterates it and
     ``rollout_graphed`` replays it from a CUDA graph."""
     if heightmap is not None:
+        @spanned("terrain.foothold")
         def foothold_adjust(pf_target, state, obs):
             p0 = torch.where(state.first_swing[..., None], obs.p_feet, state.swing_p0)
             return cmpc_variant.foothold_update(
@@ -262,11 +263,8 @@ def rollout_graphed(n_mpc_steps: int, plant: srb_sim.PlantState,
     eagerly, the next captures the period, and it and the rest replay it.
     The same arguments (``rollout``'s after ctrl), the same kernels and
     launches, the same result.  Each period's trace is copied on the card;
-    nothing is read back.  ``tunable``'s tensors are read at every replay.
-    On CPU tensors every period runs eagerly.  The terrain period is not
-    captured yet: pass no ``heightmap`` (call ``rollout`` with one)."""
-    if inspect.signature(period_step).bind(*args, **kw).arguments.get("heightmap") is not None:
-        raise ValueError("rollout_graphed runs no heightmap yet; call rollout")
+    nothing is read back.  ``tunable``'s tensors and the ``heightmap``'s are
+    read at every replay.  On CPU tensors every period runs eagerly."""
     carry = RolloutCarry(plant, ctrl)
     graphed = graphs.capture(period_step(*args, **kw), carry, name="loop.period")
     return _periods(graphed, carry, n_mpc_steps,

@@ -26,7 +26,7 @@ from quad_periodic_mpc_tpu_torch.ops import discretize
 from quad_periodic_mpc_tpu_torch.ops.cuda import srb_plant_kernel
 from quad_periodic_mpc_tpu_torch.ops.rotations import rpy_to_quat, rpy_to_rotmat
 from quad_periodic_mpc_tpu_torch.utils.consts import const
-from quad_periodic_mpc_tpu_torch.utils.telemetry import spanned
+from quad_periodic_mpc_tpu_torch.utils.telemetry import span, spanned
 
 
 class DisturbanceParams(NamedTuple):
@@ -127,9 +127,10 @@ def step(
     new = advance(plant, forces, p_foot_des, stance_mask, dist, cfg, dt)
     feet_new = new.p_feet
     if ground_fn is not None:
-        gz = ground_fn(feet_new[..., 0:2])
-        feet_new = torch.cat(
-            [feet_new[..., 0:2], torch.maximum(feet_new[..., 2], gz)[..., None]], dim=-1)
+        with span("terrain.ground"):
+            gz = ground_fn(feet_new[..., 0:2])
+            feet_new = torch.cat(
+                [feet_new[..., 0:2], torch.maximum(feet_new[..., 2], gz)[..., None]], dim=-1)
     return new._replace(p_feet=feet_new)
 
 

@@ -31,6 +31,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from quad_periodic_mpc_tpu_torch.utils.consts import const
+
 
 class HeightMap(NamedTuple):
     """Body-centered 2.5-D grid (rows = y, cols = x, like grid_map)."""
@@ -431,16 +433,20 @@ def select_foothold(
     traversability_min: float = 0.8,
     foot_offset: float = 0.0,
     keep_xy_if_unmoved: bool = False,
-) -> torch.Tensor:
+    return_moved: bool = False,
+):
     """Map-aware foothold: snap pf to the first traversable cell in spiral
     order and take its elevation (_idxMapChecking + _updateFoothold,
     CMPC_Locomotion_cv.cpp:768-940).  keep_xy_if_unmoved: when the search
     keeps the target's own cell, return the exact Raibert xy instead of the
-    (ceil-quantized) cell center."""
+    (ceil-quantized) cell center.  return_moved: also return (...,) bool,
+    the targets the search moved off their own cell or found no valid cell
+    for.  The spiral's offsets are a cached device constant
+    (``utils/consts.const``): a captured step finds them made."""
     H, W = hm.elevation.shape[-2:]
     device = hm.elevation.device
     r_cells = max(1, int(np.ceil(search_radius_m / hm.resolution)))
-    offs = torch.as_tensor(spiral_offsets(r_cells), dtype=torch.int64, device=device)
+    offs = const(spiral_offsets(r_cells), torch.int64, device)
     k = offs.shape[0]
 
     center_idx = world_to_index(hm, pf[..., 0:2])                # (..., 2)
@@ -461,7 +467,11 @@ def select_foothold(
     xy = hm.center + hm.resolution * torch.stack(
         [rel_col.to(z.dtype), rel_row.to(z.dtype)], dim=-1)
     xy = torch.where(any_valid[..., None], xy, pf[..., 0:2])
-    if keep_xy_if_unmoved:
+    if keep_xy_if_unmoved or return_moved:
         unmoved = (sel == center_idx).all(-1)
+    if keep_xy_if_unmoved:
         xy = torch.where(unmoved[..., None], pf[..., 0:2], xy)
-    return torch.cat([xy, (z + foot_offset)[..., None]], dim=-1)
+    out = torch.cat([xy, (z + foot_offset)[..., None]], dim=-1)
+    if return_moved:
+        return out, ~unmoved | ~any_valid
+    return out

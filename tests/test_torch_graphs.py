@@ -39,6 +39,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from quad_periodic_mpc_tpu_torch.config import (
     ADMMConfig, EstimatorConfig, LoopConfig, MPCConfig, SwingConfig, TunableParams,
 )
+from quad_periodic_mpc_tpu_torch.control import cmpc_variant as CV
 from quad_periodic_mpc_tpu_torch.control import full_stack as FS
 from quad_periodic_mpc_tpu_torch.control import loop as L
 from quad_periodic_mpc_tpu_torch.control import mpc as M
@@ -51,6 +52,7 @@ from quad_periodic_mpc_tpu_torch.ops.cuda import wbc_kernel as WK
 from quad_periodic_mpc_tpu_torch.runtime import graphs
 from quad_periodic_mpc_tpu_torch.sim import articulated_sim as art
 from quad_periodic_mpc_tpu_torch.sim import srb_sim as S
+from quad_periodic_mpc_tpu_torch.terrain import scenario
 from quad_periodic_mpc_tpu_torch.utils.telemetry import leaves, unflatten
 
 B, H, ITERS, VX = 2, 10, 30, 0.3
@@ -78,6 +80,32 @@ def _trot(batch: int = B):
 
 def _configs():
     return MPCConfig(horizon=H), LoopConfig(), EstimatorConfig(), SOLVER
+
+
+EDGE, RISER = 0.22, 0.06
+
+
+def _terrain(batch: int = B, device="cpu"):
+    """The map-aware trot of tests/test_torch_terrain_loop.py's doorstep
+    experiment (vx = 0.25 from rest, no disturbance): instance 0 before a
+    6 cm riser at 0.22 m, close enough that the search moves its front feet's
+    targets in the first periods, the others on flat ground, each with its own
+    96 x 96 map at 0.03 m.  (carry, cmd, gait, dist, heightmap, ground_fn)."""
+    f32 = dict(dtype=torch.float32, device=device)
+    terr = scenario.StairsTerrain(
+        edge_x=torch.tensor([EDGE] + [1e6] * (batch - 1), **f32),
+        riser=torch.tensor([RISER] + [0.0] * (batch - 1), **f32), tread=10.0, n_steps=1)
+    hm = scenario.build_map(terr, size=96, resolution=0.03)
+    plant = S.init_plant((batch,), body_height=0.29, device=device)
+    ctrl = M.init_state((batch,), S.observe(plant), horizon=H, formulation="stagewise")
+    ctrl = ctrl._replace(
+        iteration=(torch.arange(batch, dtype=torch.int32, device=device) * 7) % 208)
+    cmd = M.Command(vx=torch.full((batch,), 0.25, **f32), vy=torch.zeros(batch, **f32),
+                    yaw_rate=torch.zeros(batch, **f32),
+                    body_height=torch.full((batch,), 0.29, **f32))
+    return (L.RolloutCarry(plant, ctrl), cmd, G.preset("trotting", device=device),
+            S.DisturbanceParams.zero((batch,), device=device), hm,
+            lambda xy: scenario.ground_z(terr, xy))
 
 
 def _full_stack(batch: int = 1):
@@ -159,16 +187,25 @@ def test_capture_on_cpu_tensors_is_the_eager_step():
     assert graphs.capture(step, carry) is step
 
 
-def test_rollout_graphed_refuses_a_heightmap():
-    """The terrain period is not captured: a heightmap, by keyword or in
-    its place among the positional arguments, raises before any period."""
-    carry, cmd, gait, dist = _trot()
+@pytest.mark.parametrize("passed", ["by keyword", "positionally"])
+def test_rollout_graphed_runs_the_terrain_period(passed):
+    """3 periods of the map-aware trot over a doorstep (a heightmap and the
+    plant's ground, given by keyword or in their places among the
+    positional arguments) through rollout_graphed against rollout: every
+    leaf of the carry and the trace equal."""
+    carry, cmd, gait, dist, hm, ground = _terrain()
     args = (cmd, gait, dist, *_configs())
-    with pytest.raises(ValueError, match="heightmap"):
-        L.rollout_graphed(1, carry.plant, carry.ctrl, *args, heightmap=object())
-    with pytest.raises(ValueError, match="heightmap"):
-        L.rollout_graphed(1, carry.plant, carry.ctrl, *args, L.A1, SwingConfig(), None,
-                          object())
+    counts = CV.foothold_counts()
+    want = L.rollout(3, carry.plant, carry.ctrl, *args, heightmap=hm, ground_fn=ground)
+    moved, searched = (b - a for a, b in zip(counts, CV.foothold_counts()))
+    assert searched == 3 * 13 * 4 * B and moved > 0, "the map moved no foothold"
+    if passed == "by keyword":
+        got = L.rollout_graphed(3, carry.plant, carry.ctrl, *args, heightmap=hm,
+                                ground_fn=ground)
+    else:
+        got = L.rollout_graphed(3, carry.plant, carry.ctrl, *args, L.A1, SwingConfig(), None,
+                                hm, ground)
+    _assert_bit_equal(got, want)
 
 
 @contextlib.contextmanager
@@ -357,6 +394,10 @@ def _captured_steps(which: str):
         carry, cmd, gait, dist = _trot()
         carry, cmd, dist = (unflatten(t, [x[0] for x in leaves(t)]) for t in (carry, cmd, dist))
         return L.period_step(cmd, gait, dist, *_configs()), (carry,)
+    if which == "terrain":
+        carry, cmd, gait, dist, hm, ground = _terrain()
+        return L.period_step(cmd, gait, dist, *_configs(), heightmap=hm,
+                             ground_fn=ground), (carry,)
     if which in ("trot", "tunable"):
         carry, cmd, gait, dist = _trot()
         mpc_cfg, loop_cfg, est_cfg, solver = _configs()
@@ -373,13 +414,14 @@ def _captured_steps(which: str):
                                                 if k != "substeps"})[0],)), (carry.ctrl,)
 
 
-@pytest.mark.parametrize("which", ["trot", "trot, no batch axis", "tunable", "mpc tick",
-                                   "plain tick", "controller alone"])
+@pytest.mark.parametrize("which", ["trot", "trot, no batch axis", "tunable", "terrain",
+                                   "mpc tick", "plain tick", "controller alone"])
 def test_captured_steps_read_nothing_back_and_leave_their_input(which):
     """The trot period (fused build; also with no batch axis, as the CLI's
-    rollout runs it), the tunable period (caller-built solve), the full
-    stack's MPC and plain ticks (its period is one and twelve of the other)
-    and the controller tick with the plant held."""
+    rollout runs it), the tunable period (caller-built solve), the terrain
+    period (a heightmap and the plant's ground), the full stack's MPC and
+    plain ticks (its period is one and twelve of the other) and the
+    controller tick with the plant held."""
     step, state = _captured_steps(which)
     step(*state)                               # makes the constants
     before = [t.clone() for t in leaves(state)]
@@ -388,3 +430,47 @@ def test_captured_steps_read_nothing_back_and_leave_their_input(which):
     assert len(out) >= len(state)
     for a, b in zip(leaves(state), before):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [37, 2048])
+def test_terrain_period_replays_bit_equal_to_eager_on_the_card(batch):
+    """The map-aware trot's period captured (graphs.capture of
+    loop.period_step with a heightmap and a ground) and replayed for 6
+    periods against 6 eager periods: every leaf equal, one fused-build
+    launch in the graph and in each eager period, the SRB plant kernel's
+    13 launches in each eager period (its count holds eager launches
+    only), and the foothold counters advanced by every replay alike."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from quad_periodic_mpc_tpu_torch.ops.cuda import srb_plant_kernel as SPK
+
+    device = torch.device("cuda", 0)
+    carry, cmd, gait, dist, hm, ground = _terrain(batch, device)
+    step = L.period_step(cmd, gait, dist, *_configs(), heightmap=hm, ground_fn=ground)
+    n = 6
+    fused0, plant0 = SK.LAUNCHES["fused_stagewise_solve_srb"], SPK.LAUNCHES
+    eager = carry
+    for _ in range(n):
+        eager, _ = step(eager)
+    torch.cuda.synchronize()
+    assert SK.LAUNCHES["fused_stagewise_solve_srb"] == fused0 + n
+    assert SPK.LAUNCHES == plant0 + 13 * n
+    graphed = graphs.capture(step, carry, name="terrain.period")
+    fused0, plant0 = SK.LAUNCHES["fused_stagewise_solve_srb"], SPK.LAUNCHES
+    got = carry
+    searched = []
+    for _ in range(n):
+        got, _ = graphed(got)
+        torch.cuda.synchronize()
+        searched.append(CV.foothold_counts()[1])
+    assert graphed.graph is not None and graphed.launches == {"fused_stagewise_solve_srb": 1}
+    assert SK.LAUNCHES["fused_stagewise_solve_srb"] == fused0 + n
+    assert SPK.LAUNCHES == plant0 + 13 * graphs.WARMUP
+    steps = {b - a for a, b in zip(searched, searched[1:])}
+    assert steps == {13 * 4 * batch}, steps
+    _assert_bit_equal(got, eager)

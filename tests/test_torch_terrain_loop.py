@@ -102,6 +102,31 @@ def test_frozen_map_same_world_answers():
     np.testing.assert_allclose(out_a.numpy(), out_c.numpy(), atol=1e-6)
 
 
+def test_foothold_counters_hold_a_direct_count():
+    """FOOTHOLD_MOVED and FOOTHOLD_SEARCHED after one foothold_update on
+    three flat maps against a direct count: one target snapped off its own
+    cell (made untraversable), the four targets of a map with no
+    traversable cell, none of the other seven; twelve searched."""
+    terr = scenario.StairsTerrain.flat((3,), device=CPU)
+    hm = scenario.build_map(terr, size=48, resolution=0.03)
+    pf = torch.tensor([[0.18, -0.13, 0.0], [0.18, 0.13, 0.0], [-0.18, -0.13, 0.0],
+                       [-0.18, 0.13, 0.0]]).expand(3, 4, 3).clone()
+    pf[1] += torch.tensor([0.011, -0.004, 0.0])
+    own = hmap.world_to_index(hm._replace(center=hm.center[:, None, :]), pf[..., 0:2])
+    trav = hm.traversability.clone()
+    trav[1, own[1, 2, 0], own[1, 2, 1]] = 0.0                # the forced snap
+    trav[2] = 0.0                                            # no valid cell anywhere
+    hm = hm._replace(traversability=trav)
+    direct = hmap.sample(trav, own) <= 0.8
+    assert direct.sum() == 5
+    before = cv.foothold_counts()
+    out = cv.foothold_update(hm, pf, pf.clone())
+    moved, searched = (b - a for a, b in zip(before, cv.foothold_counts()))
+    assert (moved, searched) == (int(direct.sum()), 12)
+    shifted = (out[..., 0:2] != pf[..., 0:2]).any(-1)
+    assert shifted.tolist() == [[False] * 4, [False, False, True, False], [False] * 4]
+
+
 # ---- the loop's terrain hooks against JAX ---------------------------------
 
 def test_plant_ground_clamp_and_terrain_command_match_jax():
