@@ -340,6 +340,9 @@ B1_CHAINS, B1_PERIODS = 10, 2
 # the SRB plant step (srb_sim.step on a card): the trot cell's batch and the
 # main path's; x' to testing/kernel_cases.SRB_PLANT_TOL, feet and t exactly
 SRB_PLANT_CASES = (32768, BATCH)
+# the swing update (mpc.swing_update on a card): the trot cell's batch, the
+# main path's and the single robot's; testing/kernel_cases.SWING_ULPS
+SWING_CASES = (32768, BATCH, 1)
 # kernel vs plain version, the tolerances of the reference's kernel tests
 # (tests/test_kinematics_kernel.py): f32 sums in another order.  The model
 # evaluation's, the WBC's and the plant's are testing/kernel_cases.MODEL_TOL,
@@ -925,6 +928,17 @@ def srb_plant_bytes(B: int, wrench: bool) -> int:
     return 4 * B * (13 + 36 + 4 + 1 + 4 * (6 if wrench else 1) + 13 + 12 + 1)
 
 
+def swing_update_bytes(B: int) -> int:
+    """Read once: p (3), v's x and y (2), the quaternion (4), the feet (12),
+    iteration, the velocity command (2), world_position_desired (3),
+    rpy_int (2), first_swing (4 B), the swing timers (4), p0 and pf (12
+    each) and the yaw rate, a gait shared by the batch; written once: the
+    state's eight fields and the outputs (p, v, a targets, contact and swing
+    states).  560 B an instance in float32."""
+    return 4 * B * (3 + 2 + 4 + 12 + 1 + 2 + 3 + 2 + 1 + 4 + 24 + 1) + 4 * B * (
+        1 + 3 + 2 + 2 + 1 + 4 + 24 + 36 + 4 + 4)
+
+
 def admm_flops(n: int, m: int, iters: int) -> int:
     """Per instance, from csrc/admm.cu's loops: rhs (12 a variable), the
     K^{-1} product (2 n^2), the x update (3 a variable) and the z / y / w row
@@ -1394,6 +1408,49 @@ def compare_srb_plant(device, card: str) -> dict:
     }
 
 
+def compare_swing_update(device, card: str) -> dict:
+    """The swing update's kernel (mpc.swing_update_kernel) against
+    mpc.swing_update_plain at SWING_CASES, the trot and per-instance stacked
+    gaits, in float32 (each timed, beside the plain version) and float64, by
+    testing/kernel_cases.swing_update_mismatches.  Returns its record; the
+    time is the trot cell's (B = 32,768, the shared trot)."""
+    import torch
+
+    from quad_periodic_mpc_tpu_torch.control import mpc as M
+    from quad_periodic_mpc_tpu_torch.testing import kernel_cases as KC
+
+    shapes = []
+    for i, (B, gait, dtype) in enumerate(
+            (B, g, d) for B in SWING_CASES for g in ("trot", "stacked")
+            for d in (torch.float32, torch.float64)):
+        args = KC.swing_update_case(B, seed=300 + i, device=device, gait_kind=gait, dtype=dtype)
+        bad, gaps = KC.swing_update_mismatches(args)
+        torch.cuda.synchronize()
+        print(f"[kernel] swing_update B={B} {gait} {str(dtype)[6:]}: largest |kernel - plain| "
+              + ", ".join(f"{k} {v:.3g}" for k, v in gaps.items()))
+        check(not bad, f"swing_update disagrees with its plain version in {bad} at B={B} "
+              f"({gait}, {dtype})")
+        if dtype != torch.float32 or gait != "trot":
+            continue
+        ms, call_ms = kernel_ms(lambda: M.swing_update_kernel(*args), 20, "swing_update_kernel")
+        plain_ms = time_ms(lambda: M.swing_update_plain(*args), 5)
+        bound_ms, bound_by = bound(0, swing_update_bytes(B))
+        shapes.append({"B": B, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "max_abs_err": gaps["swing_pf"]})
+        print(f"[kernel] swing_update B={B}: kernel {ms:.5f} ms on the device "
+              f"({call_ms:.4f} ms per call), plain version {plain_ms:.3f} ms (eager), bound "
+              f"{bound_ms:.5f} ms ({bound_by}; {swing_update_bytes(B)} B) on {card}")
+    main = shapes[0]
+    return {
+        "name": "swing_update", "route": "cuda",
+        "source": "quad_periodic_mpc_tpu_torch/csrc/swing_update.cu", "replaces": None,
+        "launches": None, "max_abs_err": max(r["max_abs_err"] for r in shapes),
+        "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": None, "shapes": shapes,
+    }
+
+
 def take_srb_plant_launches() -> int:
     """The SRB plant kernel's launches since the last call, its count set to
     0.  Graph captures and replays are not counted (it is not one of
@@ -1401,6 +1458,16 @@ def take_srb_plant_launches() -> int:
     from quad_periodic_mpc_tpu_torch.ops.cuda import srb_plant_kernel as SPK
 
     n, SPK.LAUNCHES = SPK.LAUNCHES, 0
+    return n
+
+
+def take_swing_launches() -> int:
+    """The swing update kernel's launches since the last call, its count
+    set to 0.  As the plant's: eager launches count, a graph's capture and
+    replays do not."""
+    from quad_periodic_mpc_tpu_torch.ops.cuda import swing_update_kernel as SUK
+
+    n, SUK.LAUNCHES = SUK.LAUNCHES, 0
     return n
 
 
@@ -1601,17 +1668,23 @@ def main_path(device, card: str) -> dict:
     ctrl, plant, cmd, gait, dist = trot_inputs(device)
     torch.cuda.synchronize()
     reset_stagewise_counts()
+    take_swing_launches()
     t0 = time.perf_counter()
     carry, trace = L.rollout(ROLLOUT_PERIODS, plant, ctrl, cmd, gait, dist,
                              mpc_cfg, loop_cfg, est_cfg, solver)
     torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - t0) / ROLLOUT_PERIODS
     rollout_launches = SK.LAUNCHES["fused_stagewise_solve_srb"]
+    swings = take_swing_launches()
+    ticks = ROLLOUT_PERIODS * loop_cfg.iterations_between_mpc
     print(f"[main path] loop.rollout B={BATCH}: {ROLLOUT_PERIODS} periods, "
           f"{ms:.1f} ms/period (13 control ticks each), kernel launches "
-          f"{rollout_launches} on {card}")
+          f"{rollout_launches}, swing_update {swings} on {card}")
     check(rollout_launches == ROLLOUT_PERIODS,
           f"expected {ROLLOUT_PERIODS} rollout launches, counted {rollout_launches}")
+    check(swings == ticks, f"expected {ticks} swing_update launches (one a control tick), "
+          f"counted {swings}")
+    counts["swing_update"] = swings
     check(bool(torch.isfinite(trace.forces).all())
           and bool(torch.isfinite(carry.plant.x).all()), "non-finite rollout")
     height = float(carry.plant.x[:, 5].mean())
@@ -5012,9 +5085,15 @@ def main() -> int:
         record = compare_kernels(device, card)
         tick_records = compare_tick_kernels(device, card)
         srb_plant = compare_srb_plant(device, card)
+        swing = compare_swing_update(device, card)
         plant_paths = srb_plant["launches_by_path"] = {}
+        # the paths that run a swing update (bench.py's glide, on the main
+        # path's timed periods and the walking lines, runs none)
+        swing_paths = swing["launches_by_path"] = {}
         counts = main_path(device, card)
         srb_plant["launches"] = counts["srb_plant_step"]
+        swing["launches"] = swing_paths["main path"] = counts["swing_update"]
+        take_swing_launches()
         srb_shapes = {s["path"]: s for s in record["shapes"]}
         record["launches"] = counts["fused_stagewise_solve_srb"]
         srb_shapes["main path"]["launches"] = record["launches"]
@@ -5024,7 +5103,9 @@ def main() -> int:
                 tick_records[name]["launches"] = n
             if name == "fused_stagewise_solve_srb":
                 srb_shapes["full stack"]["launches"] = n
+        swing_paths["full stack"] = take_swing_launches()
         single_robot(device, card)
+        swing_paths["single robot"] = take_swing_launches()
         solve_records = compare_solve_kernels(device, card)
         take_srb_plant_launches()
         counts = walking_line(device, card, "predictive", BATCH, HORIZON, ADMM_ITERS,
@@ -5048,16 +5129,20 @@ def main() -> int:
         by_name = {r["name"]: r for r in (record, *tick_records.values(),
                                           *solve_records.values(), *slice4_records.values())}
         take_srb_plant_launches()
+        take_swing_launches()
         for path, counts in [*slice5(device, card).items(),
                              ("terrain", terrain_experiment(device, card))]:
             for name, n in counts.items():
                 check(n > 0, f"{name} was launched no time on the {path} path")
                 by_name[name].setdefault("launches_by_path", {})[path] = n
         plant_paths["tunable, weight sweep, go1"] = take_srb_plant_launches()   # in this process
+        swing_paths["estimator, tunable, go1, terrain"] = take_swing_launches()
         elevation_mapping(device, card)
         take_srb_plant_launches()
+        take_swing_launches()
         by_kernel, by_shape, sweep_figures = sweeps(device, card)
         plant_paths["sweeps"] = take_srb_plant_launches()
+        swing_paths["sweeps"] = take_swing_launches()
         for name, n in by_kernel.items():
             by_name[name].setdefault("launches_by_path", {})["sweeps"] = n
         for path, n in by_shape.items():
@@ -5071,8 +5156,10 @@ def main() -> int:
             check(n > 0, f"{name} was launched no time on the force stand path")
             by_name[name].setdefault("launches_by_path", {})["force stand"] = n
         take_srb_plant_launches()
+        take_swing_launches()
         surfaces = slice9(device, card)
         plant_paths["cli"] = take_srb_plant_launches()
+        swing_paths["cli"] = take_swing_launches()
         for path, names in (("cli", ("fused_stagewise_solve_srb", "fused_stagewise_solve",
                                      "fused_admm_iterations")),
                             ("golden", ("fused_stagewise_solve", "fused_admm_iterations"))):
@@ -5083,6 +5170,7 @@ def main() -> int:
                 by_name[name].setdefault("launches_by_path", {})[path] = n
         graphed = slice10(device, card)
         plant_paths["graphs"] = take_srb_plant_launches()       # the eager warm-ups
+        swing_paths["graphs"] = take_swing_launches()
         for name in ("fused_stagewise_solve_srb", "fused_stagewise_solve", "fused_model_eval",
                      "fused_wbc", "fused_substeps"):
             check(graphed.get(name, 0) > 0, f"{name} was launched no time on the graphs path")
@@ -5094,6 +5182,8 @@ def main() -> int:
         check(srb_plant["launches"] > 0, "srb_plant_step was launched on no driven path")
         for path, n in plant_paths.items():
             check(n > 0, f"srb_plant_step was launched no time on the {path} path")
+        for path, n in swing_paths.items():
+            check(n > 0, f"swing_update was launched no time on the {path} path")
         if "jax" in sys.modules or "quad_periodic_mpc_tpu" in sys.modules:
             raise SmokeFailure("JAX or the JAX package was imported")
     except SmokeFailure as e:
@@ -5102,7 +5192,7 @@ def main() -> int:
     print("[sweep figures] " + json.dumps(sweep_figures))
     print(card)
     print(json.dumps({"kernels": [record, *tick_records.values(), *solve_records.values(),
-                                  *slice4_records.values(), srb_plant]}))
+                                  *slice4_records.values(), srb_plant, swing]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -22,7 +22,9 @@
   carried from period to period in ``warm_kinv``.  A ``PDIPConfig`` solves
   the same condensed QP by ``qp_pdip.solve``.
 - ``swing_update`` runs every control tick: swing bookkeeping and foot
-  targets (ConvexMPCLocomotion.cpp:277-460).
+  targets (ConvexMPCLocomotion.cpp:277-460); on a card one launch of
+  ``csrc/swing_update.cu`` (``swing_update_kernel``), on the CPU its plain
+  version ``swing_update_plain``.
 
 A leading batch axis runs many MPC instances in one call.  Both take
 live-tunable parameters (``config.TunableParams``, tensors read only on the
@@ -51,6 +53,7 @@ from quad_periodic_mpc_tpu_torch.ops import estimator as est_ops
 from quad_periodic_mpc_tpu_torch.ops import gait as gait_ops
 from quad_periodic_mpc_tpu_torch.ops import qp_admm, qp_pdip, qp_stagewise
 from quad_periodic_mpc_tpu_torch.ops.cuda import stagewise_kernel
+from quad_periodic_mpc_tpu_torch.ops.cuda import swing_update_kernel as swing_kernel
 from quad_periodic_mpc_tpu_torch.ops.rotations import (
     quat_to_rotmat,
     quat_to_rpy,
@@ -426,7 +429,43 @@ def swing_update(
     the Raibert targets before they become swing goals; the terrain tier
     plugs the elevation-map foothold update in here (the call site of
     _updateFoothold in the _cv driver's swing-leg loop,
-    CMPC_Locomotion_cv.cpp:1022)."""
+    CMPC_Locomotion_cv.cpp:1022).
+
+    On a card ``swing_update_kernel``, on the CPU ``swing_update_plain``."""
+    update = swing_update_kernel if obs.p.device.type == "cuda" else swing_update_plain
+    return update(state, obs, cmd, gait, model, swing_cfg, mpc, loop, swing_height,
+                  tunable, foothold_adjust)
+
+
+def swing_update_kernel(state, obs, cmd, gait, model, swing_cfg, mpc, loop, swing_height,
+                        tunable=None, foothold_adjust=None):
+    """``swing_update_plain``'s update as one launch of a CUDA kernel
+    (``ops/cuda/swing_update_kernel``); with a foothold hook, one launch
+    for the Raibert targets, the hook, and one launch for the rest, which
+    reads the state from before the update as the hook does.  ``mpc`` is
+    not read: it keeps the plain version's signature, so either version
+    takes the other's place."""
+    params = (model, swing_cfg, loop, swing_height, tunable)
+    pf_target = None
+    if foothold_adjust is not None:
+        pf_target = swing_kernel.launch(state, obs, cmd, gait, *params,
+                                        targets_only=True)["pf_target"]
+        pf_target = foothold_adjust(pf_target, state, obs)
+    o = swing_kernel.launch(state, obs, cmd, gait, *params, pf_target=pf_target)
+    state = state._replace(**{f: o[f] for f in (
+        "iteration", "world_position_desired", "rpy_int", "rpy_comp", "first_swing",
+        "swing_time_remaining", "swing_p0", "swing_pf")})
+    out = ControlOutput(
+        f_ff=state.f_ff, fr_des=state.fr_des, p_foot_des=o["p_foot_des"],
+        v_foot_des=o["v_foot_des"], a_foot_des=o["a_foot_des"],
+        contact_state=o["contact_state"], swing_state=o["swing_state"])
+    return state, out
+
+
+def swing_update_plain(state, obs, cmd, gait, model, swing_cfg, mpc, loop, swing_height,
+                       tunable=None, foothold_adjust=None):
+    """``swing_update`` in PyTorch operations, the plain version of
+    ``swing_update_kernel``."""
     if tunable is not None:
         swing_height = tunable.swing_height
     dtype, device = obs.p.dtype, obs.p.device

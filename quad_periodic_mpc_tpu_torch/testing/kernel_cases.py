@@ -12,11 +12,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from quad_periodic_mpc_tpu_torch.config import ADMMConfig, MPCConfig, PDIPConfig
-from quad_periodic_mpc_tpu_torch.control import wbc
+from quad_periodic_mpc_tpu_torch.config import (
+    ADMMConfig, LoopConfig, MPCConfig, PDIPConfig, SwingConfig, TunableParams,
+)
+from quad_periodic_mpc_tpu_torch.control import mpc, wbc
+from quad_periodic_mpc_tpu_torch.models.a1 import A1
 from quad_periodic_mpc_tpu_torch.models import floating_base as fb
 from quad_periodic_mpc_tpu_torch.ops import constraints, gait, linalg, problem, qp_admm, qp_stagewise
-from quad_periodic_mpc_tpu_torch.ops.cuda import kinematics_kernel
+from quad_periodic_mpc_tpu_torch.ops.cuda import kinematics_kernel, swing_update_kernel
 from quad_periodic_mpc_tpu_torch.ops.rotations import quat_to_rotmat, rpy_to_quat
 from quad_periodic_mpc_tpu_torch.sim import articulated_sim as art
 from quad_periodic_mpc_tpu_torch.sim import srb_sim
@@ -281,6 +284,138 @@ def srb_plant_case(B: int, seed: int = 0, device="cuda", stance: str = "mixed",
         dist = srb_sim.DisturbanceParams(t(np.full(B, -10.0)), t(u(10, 20)), t(u(0.2, 0.5)),
                                          t(u(0, 2 * np.pi)))
     return plant, t(forces), t(des), t(mask), dist
+
+
+# Swing update kernel vs its plain version (control/mpc.swing_update_plain):
+# bit for bit, but for the fields that pass through a 3x3 product (cuBLAS
+# or the CPU's bmm on the plain path, index order in the kernel) or a
+# transcendental (the host's atan2f / asinf / sinf / cosf against PyTorch's
+# CPU kernels): the Raibert targets' xy, world_position_desired, rpy_int and
+# rpy_comp, each within SWING_ULPS ulps of its value in its own dtype.
+SWING_ULPS = 4
+SWING_GAITS = ("trot", "stacked", "standing")
+
+
+def swing_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest |got - want| in ulps of want's value in want's dtype
+    (float32 or float64)."""
+    np_dt = np.float64 if want.dtype == torch.float64 else np.float32
+    w = want.double().abs().cpu().numpy().astype(np_dt)
+    gap = (got.double() - want.double()).abs().cpu().numpy()
+    return float((gap / np.spacing(w)).max())
+
+
+def swing_update_case(B: int, seed: int = 0, device="cuda", gait_kind: str = "trot",
+                      per_instance_tunable: bool = False, first_swing: str = "random",
+                      dtype=torch.float32) -> tuple:
+    """The arguments of ``mpc.swing_update`` after ``tunable``'s place:
+    (state, obs, cmd, gait, model, swing_cfg, mpc_cfg, loop_cfg,
+    swing_height, tunable), float32 values held in ``dtype``.
+
+    Any iteration of the gait cycle; gaits ``trot`` (the preset, shared),
+    ``stacked`` (every preset at a period of 10 or 16 segments, one per
+    instance) or ``standing``; rpy up to +-0.5 rad on quaternions scaled
+    by 0.97-1.03; the first rows' body velocities on both sides of the
+    roll/pitch integral's guards (0.2 and 0.1 m/s in ``dtype``, the next
+    numbers above and below them) and exactly 0, a zero velocity command
+    in row 0.  ``first_swing`` is random per leg or "all" (every leg that
+    swings starts its swing).  The body, world_position_desired and the
+    rpy integral lie 1-5 m and 0.05-0.3 rad from 0, so that a gap of a few
+    ulps of a value (``SWING_ULPS``) is one of the rounding, not of a
+    cancellation near 0."""
+    np_dt = np.float32 if dtype == torch.float32 else np.float64
+    t = lambda a: _t(a, device, dtype)
+    rng = np.random.default_rng(seed)
+    u = lambda lo, hi, *shape: rng.uniform(lo, hi, (B,) + shape)
+    sign = lambda *shape: rng.choice([-1.0, 1.0], (B,) + shape)
+    p = np.concatenate([sign(2) * u(1, 5, 2), u(0.2, 0.35, 1)], -1)
+    hips = np.array([[0.18, -0.13, 0], [0.18, 0.13, 0], [-0.18, -0.13, 0], [-0.18, 0.13, 0]])
+    feet = p[:, None, :] * np.array([1, 1, 0]) + hips + u(-0.05, 0.05, 4, 3) * [1, 1, 0]
+    feet[..., 2] = u(0, 0.05, 4)
+    quat = rpy_to_quat(torch.as_tensor(u(-0.5, 0.5, 3))) * torch.as_tensor(u(0.97, 1.03, 1))
+    v = torch.as_tensor(np.asarray(u(-1, 1, 3), np.float32)).to(dtype)
+    guard = lambda g: np.array([0, g, -g, np.nextafter(g, np_dt(1)), np.nextafter(g, np_dt(0)),
+                                -np.nextafter(g, np_dt(1))], np_dt)
+    n = min(B, 6)
+    v[:n, 0] = torch.as_tensor(guard(np_dt(0.2))[:n])
+    v[:n, 1] = torch.as_tensor(guard(np_dt(0.1))[::-1].copy()[:n])
+    obs = mpc.Observation(p=t(p), v=v.to(device), quat=t(quat.numpy()),
+                          omega=t(u(-1, 1, 3)), p_feet=t(feet))
+    if gait_kind == "stacked":
+        stacks = [gait.stacked_presets(period=period, device=device) for period in (10, 16)]
+        which = torch.as_tensor(rng.integers(0, 2, B), device=device)
+        name = torch.as_tensor(rng.integers(0, len(gait.PRESET_NAMES), B), device=device)
+        g = gait.GaitParams(*(torch.where(which.reshape((B,) + (1,) * (a.ndim - 1)) == 1,
+                                          b[name], a[name]) for a, b in zip(*stacks)))
+    else:
+        g = gait.preset({"trot": "trotting", "standing": "standing"}[gait_kind], device=device)
+    vel_des = u(-1, 1, 2) * [1, 0.5]
+    vel_des[0] = 0.0
+    fs = np.ones((B, 4), bool) if first_swing == "all" else rng.integers(0, 2, (B, 4)) == 1
+    wpd = np.concatenate([sign(2) * u(1, 5, 2), np.full((B, 1), 0.24)], -1)
+    state = mpc.init_state((B,), obs, window=8, dtype=dtype, horizon=2,
+                           formulation="stagewise")._replace(
+        iteration=torch.as_tensor(rng.integers(0, 10_000, B), dtype=torch.int32, device=device),
+        x_vel_des=t(vel_des[:, 0]), y_vel_des=t(vel_des[:, 1]),
+        world_position_desired=t(wpd), rpy_int=t(sign(2) * u(0.05, 0.3, 2)),
+        first_swing=torch.as_tensor(fs, device=device),
+        swing_time_remaining=t(u(-0.05, 0.3, 4)),
+        swing_p0=t(feet + u(-0.1, 0.1, 4, 3)), swing_pf=t(feet + u(-0.2, 0.2, 4, 3)))
+    cmd = mpc.Command(vx=t(vel_des[:, 0]), vy=t(vel_des[:, 1]), yaw_rate=t(u(-1, 1)),
+                      body_height=t(np.full(B, 0.29)))
+    loop_cfg, swing_cfg = LoopConfig(), SwingConfig()
+    tunable = None
+    if per_instance_tunable:
+        tunable = TunableParams.from_config(loop=loop_cfg, swing=swing_cfg, dtype=dtype,
+                                            device=device)._replace(
+            swing_height=t(u(0.05, 0.15, 1)), bonus_swing=t(u(-0.1, 0.3, 1)),
+            p_rel_max=t(u(0.05, 0.3, 1)))
+    return (state, obs, cmd, g, A1, swing_cfg, MPCConfig(), loop_cfg, loop_cfg.swing_height,
+            tunable)
+
+
+def swing_update_mismatches(args, foothold_adjust=None) -> tuple[list, dict]:
+    """``mpc.swing_update_kernel`` on ``args`` (``swing_update_case``'s)
+    against ``mpc.swing_update_plain``: (the fields that break
+    SWING_ULPS's rule, the largest |kernel - plain| on swing_p0, swing_pf,
+    p_foot_des, v_foot_des and a_foot_des).  The kernel's Raibert targets
+    are held to the plain version's within SWING_ULPS ("pf_target"); then
+    the plain version, handed the kernel's targets through its foothold hook
+    (after ``foothold_adjust``, where given), is held to the kernel field by
+    field.  The gaps are those of the two updates on their own targets."""
+    state, obs, cmd, g, model, swing_cfg, _, loop_cfg, swing_height, tunable = args
+    targets = swing_update_kernel.launch(state, obs, cmd, g, model, swing_cfg, loop_cfg,
+                                         swing_height, tunable, targets_only=True)["pf_target"]
+    adjust = foothold_adjust or (lambda pf, s, o: pf)
+    plain_targets = []
+
+    def handed(pf, s, o):
+        plain_targets.append(pf)
+        return adjust(targets, s, o)
+
+    got_state, got = mpc.swing_update_kernel(*args, foothold_adjust=foothold_adjust)
+    want_state, want = mpc.swing_update_plain(*args, foothold_adjust=handed)
+    own_state, own = mpc.swing_update_plain(*args, foothold_adjust=foothold_adjust)
+    bad = []
+    if not (swing_ulps(targets[..., :2], plain_targets[0][..., :2]) <= SWING_ULPS
+            and torch.equal(targets[..., 2], plain_targets[0][..., 2])):
+        bad.append("pf_target")
+    near = ("world_position_desired", "rpy_int", "rpy_comp")
+    pairs = [(f, getattr(got_state, f), getattr(want_state, f))
+             for f in mpc.ControllerState._fields if f != "est"]
+    pairs += [(f, getattr(got, f), getattr(want, f)) for f in mpc.ControlOutput._fields]
+    for name, a, b in pairs:
+        same = a.dtype == b.dtype and a.shape == b.shape and (
+            swing_ulps(a, b) <= SWING_ULPS if name in near else torch.equal(a, b))
+        if not same:
+            bad.append(name)
+    if got_state.est is not state.est:
+        bad.append("est")
+    gaps = {f: float((getattr(got_state, f) - getattr(own_state, f)).abs().max())
+            for f in ("swing_p0", "swing_pf")}
+    gaps.update({f: float((getattr(got, f) - getattr(own, f)).abs().max())
+                 for f in ("p_foot_des", "v_foot_des", "a_foot_des")})
+    return bad, gaps
 
 
 # Fused KF kernel vs its plain version, max abs error over x' and P'.  On

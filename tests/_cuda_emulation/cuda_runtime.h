@@ -41,6 +41,12 @@ inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
 inline float __fdividef(float a, float b) { return a / b; }
 inline float __fmul_rn(float a, float b) { return a * b; }   // never contracted
 inline double __dmul_rn(double a, double b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline double __dadd_rn(double a, double b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline double __dsub_rn(double a, double b) { return a - b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline double __ddiv_rn(double a, double b) { return a / b; }
 inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
   return __atomic_fetch_add(p, v, __ATOMIC_RELAXED);
 }

@@ -37,6 +37,7 @@ from quad_periodic_mpc_tpu_torch.ops.cuda import kinematics_kernel as KK
 from quad_periodic_mpc_tpu_torch.ops.cuda import plant_kernel as PK
 from quad_periodic_mpc_tpu_torch.ops.cuda import srb_plant_kernel as SPK
 from quad_periodic_mpc_tpu_torch.ops.cuda import stagewise_kernel as SK
+from quad_periodic_mpc_tpu_torch.ops.cuda import swing_update_kernel as SUK
 from quad_periodic_mpc_tpu_torch.ops.cuda import wbc_kernel as WK
 from quad_periodic_mpc_tpu_torch.sim import srb_sim as S
 from quad_periodic_mpc_tpu_torch.sim.articulated_sim import ContactParams
@@ -249,6 +250,97 @@ def test_srb_plant_kernel_in_the_closed_loop(emulated, monkeypatch):
     gap = max(_maxdiff(got.x[..., :12], want.x[..., :12]), _maxdiff(got.p_feet, want.p_feet))
     assert gap <= 3e-3
     assert bool(torch.isfinite(got.x).all()) and bool((got.x[:, 5] > 0.15).all())
+
+
+# (B, gait, per-instance tunable, first_swing, dtype, foothold hook)
+SWING_CASES = [
+    (1, "trot", False, "random", torch.float32, False),
+    (37, "trot", False, "random", torch.float32, False),
+    (37, "stacked", False, "random", torch.float32, False),
+    (37, "standing", False, "random", torch.float32, False),
+    (37, "stacked", True, "random", torch.float32, False),
+    (37, "trot", False, "all", torch.float32, False),
+    (37, "stacked", True, "all", torch.float64, False),
+    (37, "stacked", False, "random", torch.float32, True),
+    (1, "trot", True, "all", torch.float64, True),
+]
+
+
+def _shifted_targets(pf, state, obs):
+    """A foothold hook that reads the state from before the update, as the
+    terrain tier's does: each target moved by a tenth of its leg's foot to
+    swing-start gap."""
+    return pf + 0.1 * (obs.p_feet - state.swing_p0)
+
+
+@pytest.mark.parametrize("B,gait,tunable,first_swing,dtype,hook", SWING_CASES)
+def test_swing_update_kernel(emulated, B, gait, tunable, first_swing, dtype, hook):
+    """One swing update in the kernel against swing_update_plain
+    (KC.swing_update_mismatches): the Raibert targets within KC.SWING_ULPS
+    ulps (of their dtype) of the plain version's; then, with the plain version
+    handed the kernel's targets through its foothold hook, every field of
+    the new state and of the output bit-equal and of the same dtype, but
+    world_position_desired, rpy_int and rpy_comp (a 3x3 product and atan2 /
+    asin) within KC.SWING_ULPS.  One launch an update, two around a
+    foothold hook (which reads the state from before the update)."""
+    args = KC.swing_update_case(B, seed=B + len(gait), device="cpu", gait_kind=gait,
+                                per_instance_tunable=tunable, first_swing=first_swing,
+                                dtype=dtype)
+    adjust = _shifted_targets if hook else None
+    before = SUK.LAUNCHES
+    M.swing_update_kernel(*args, foothold_adjust=adjust)
+    assert SUK.LAUNCHES == before + 1 + hook
+    assert KC.swing_update_mismatches(args, adjust)[0] == []
+
+
+def test_swing_update_kernel_refuses_mixed_dtypes(emulated):
+    """A float16 observation or a float64 command beside a float32 state
+    raises TypeError; nothing launches."""
+    state, obs, cmd, *rest = KC.swing_update_case(3, device="cpu")
+    before = SUK.LAUNCHES
+    with pytest.raises(TypeError):
+        M.swing_update_kernel(state, obs._replace(p=obs.p.half()), cmd, *rest)
+    with pytest.raises(TypeError):
+        M.swing_update_kernel(state, obs, cmd._replace(yaw_rate=cmd.yaw_rate.double()), *rest)
+    assert SUK.LAUNCHES == before
+
+
+def test_swing_update_kernel_in_the_closed_loop(emulated, monkeypatch):
+    """Three trot periods of loop.period_step at B = 4 with the swing
+    update in the kernel against the plain version: the plant state within
+    the trot cell's plant limit (3e-3), no instance fallen (body above
+    0.15 m), and one launch a tick."""
+    B = 4
+    f32 = dict(dtype=torch.float32, device="cpu")
+    plant = S.init_plant((B,), body_height=0.29, device="cpu")
+    ctrl = M.init_state((B,), S.observe(plant), horizon=10, formulation="stagewise")
+    ctrl = ctrl._replace(iteration=(torch.arange(B, dtype=torch.int32) * 53) % 208,
+                         x_vel_des=torch.full((B,), 0.3, **f32))
+    cmd = M.Command(vx=torch.full((B,), 0.3, **f32), vy=torch.zeros(B, **f32),
+                    yaw_rate=torch.linspace(-0.2, 0.2, B), body_height=torch.full((B,), 0.29, **f32))
+    dist = S.DisturbanceParams(torch.full((B,), -10.0, **f32), torch.linspace(10, 20, B),
+                               torch.linspace(0.2, 0.5, B), torch.linspace(0, 6, B))
+    step = L.period_step(cmd, G.preset("trotting", device="cpu"), dist, MPCConfig(horizon=10),
+                         LoopConfig(), EstimatorConfig(),
+                         ADMMConfig(iterations=30, backend="pallas", formulation="stagewise"),
+                         swing_cfg=SwingConfig())
+
+    def run():
+        carry = L.RolloutCarry(plant, ctrl)
+        for _ in range(3):
+            carry, _ = step(carry)
+        return carry
+
+    want = run()
+    monkeypatch.setattr(M, "swing_update_plain", M.swing_update_kernel)
+    before = SUK.LAUNCHES
+    got = run()
+    assert SUK.LAUNCHES == before + 3 * LoopConfig().iterations_between_mpc
+    assert torch.equal(got.ctrl.iteration, want.ctrl.iteration)
+    gap = max(_maxdiff(got.plant.x[..., :12], want.plant.x[..., :12]),
+              _maxdiff(got.plant.p_feet, want.plant.p_feet))
+    assert gap <= 3e-3
+    assert bool(torch.isfinite(got.plant.x).all()) and bool((got.plant.x[:, 5] > 0.15).all())
 
 
 def test_stagewise_kernel(emulated):

@@ -16,6 +16,7 @@ import torch
 torch.set_num_threads(1)
 
 from quad_periodic_mpc_tpu_torch.config import MPCConfig
+from quad_periodic_mpc_tpu_torch.control import mpc as M
 from quad_periodic_mpc_tpu_torch.control.wbc import WBCGains
 from quad_periodic_mpc_tpu_torch.models import floating_base as fb
 from quad_periodic_mpc_tpu_torch.ops.cuda import admm_kernel as AK
@@ -24,6 +25,7 @@ from quad_periodic_mpc_tpu_torch.ops.cuda import kinematics_kernel as KK
 from quad_periodic_mpc_tpu_torch.ops.cuda import plant_kernel as PK
 from quad_periodic_mpc_tpu_torch.ops.cuda import srb_plant_kernel as SPK
 from quad_periodic_mpc_tpu_torch.ops.cuda import stagewise_kernel as SK
+from quad_periodic_mpc_tpu_torch.ops.cuda import swing_update_kernel as SUK
 from quad_periodic_mpc_tpu_torch.ops.cuda import wbc_kernel as WK
 from quad_periodic_mpc_tpu_torch.runtime import graphs
 from quad_periodic_mpc_tpu_torch.sim import srb_sim as S
@@ -308,6 +310,55 @@ def test_srb_plant_kernel_replays_bit_equal_to_eager(cuda):
     assert graphed.graph is not None
     assert SPK.LAUNCHES == before + graphs.WARMUP
     for g, w in zip(got, eager):
+        assert torch.equal(g, w)
+
+
+def _shifted_targets(pf, state, obs):
+    """A foothold hook that reads the state from before the update."""
+    return pf + 0.1 * (obs.p_feet - state.swing_p0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 32768])
+def test_swing_update_kernel_matches_plain_version(cuda, B):
+    """mpc.swing_update on the card (one launch; two around a foothold
+    hook) against swing_update_plain at the tick cell's B = 1 and the trot
+    cell's B = 32,768, float32 and float64, the shared trot and per-instance
+    stacked gaits with per-instance tunables: KC.swing_update_mismatches
+    (the Raibert targets within KC.SWING_ULPS ulps of their dtype of cuBLAS's
+    products, every other field bit-equal but world_position_desired,
+    rpy_int and rpy_comp).  Prints the largest |kernel - plain| on p0, pf,
+    p_des, v_des and a_des."""
+    for dtype in (torch.float32, torch.float64):
+        for gait, hook in (("trot", None), ("stacked", _shifted_targets)):
+            args = KC.swing_update_case(B, seed=B + len(gait), device=cuda, gait_kind=gait,
+                                        per_instance_tunable=hook is not None, dtype=dtype)
+            before = SUK.LAUNCHES
+            M.swing_update(*args, foothold_adjust=hook)
+            torch.cuda.synchronize()
+            assert SUK.LAUNCHES == before + 1 + (hook is not None)
+            bad, gaps = KC.swing_update_mismatches(args, hook)
+            print(f"swing_update B={B} {gait} {str(dtype)[6:]}: largest |kernel - plain| "
+                  + ", ".join(f"{k} {v:.3g}" for k, v in gaps.items()))
+            assert bad == []
+
+
+@pytest.mark.gpu
+def test_swing_update_kernel_replays_bit_equal_to_eager(cuda):
+    """mpc.swing_update captured in a CUDA graph (runtime/graphs.capture) at
+    B = 32,768: the replay's state and output bit-equal to the eager
+    kernel's.  The eager warm-up calls are counted launches; the capture
+    and the replays add nothing to LAUNCHES."""
+    state, obs, *rest = KC.swing_update_case(32768, seed=7, device=cuda)
+    eager = M.swing_update(state, obs, *rest)
+    graphed = graphs.capture(lambda s: M.swing_update(s, obs, *rest), state)
+    before = SUK.LAUNCHES
+    for _ in range(graphs.WARMUP + 2):
+        got = graphed(state)
+    torch.cuda.synchronize()
+    assert graphed.graph is not None
+    assert SUK.LAUNCHES == before + graphs.WARMUP
+    for g, w in zip(graphs.leaves(got), graphs.leaves(eager)):
         assert torch.equal(g, w)
 
 
