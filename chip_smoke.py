@@ -11,19 +11,26 @@ result line) when it fails:
 1. build every hand-written kernel from ``quad_periodic_mpc_tpu_torch/csrc``
    (one nvcc per source, all started together), printing ptxas' registers
    and spills;
-2. hold each kernel against its plain PyTorch version on the card with the
-   tolerances stated below, and time both: the fused-build stagewise solve
-   at every (B, h, ADMM iterations) at which the driven paths launch it,
-   each timed, and at ragged shapes (B = 1, 133, 1000; h = 48); the torque
-   tick's model evaluation, contact kinematics, WBC and plant substeps at
-   B = 256 (the full stack's batch), 1, 37, 16 and 2, from seeded numpy inputs,
-   the model evaluation, WBC and plant kernels timed at B = 1 as well (the
-   single robot); and the SRB plant step (srb_sim.step's kernel) at
-   B = 32,768 (the trot cell's) and 2048, with the x-force and the
-   six-component disturbance, in float32 (timed) and float64.  Its launches
-   are read on each srb-loop path run in this process (exactly one a period
-   on the main path's timed periods; on the graphs path the eager warm-ups,
-   as it counts no capture or replay), none of which may be 0;
+2. the kernel table (kernel_table, one row a hand-written kernel: PERF.md
+   section 6's rows 1-12): each kernel run on testing/kernel_cases' seeded
+   inputs at the shapes its driven paths launch it at (KC.PATH_CASES), held
+   to its plain PyTorch version there by its KC comparison (the card tests
+   hold it on these cases and more), and timed (device ms a launch from the
+   profiler, which must see the kernel's symbol; ms a call between CUDA
+   events) beside its plain version at the first shape and its bound: the
+   fused-build stagewise solve at every (B, h, ADMM iterations) of the
+   paths that launch it; the torque tick's model evaluation, WBC and plant
+   substeps at B = 256 (the full stack's batch) and 1 (the single robot),
+   the contact kinematics at 256; the caller-built solve at the predictive
+   path's shape, the streamed one at h = 128, the dump at 2048; the KF at
+   2048 and 1, beside the "xla" backend's dense chain; the ADMM at B = 2048,
+   h = 10 in float32 and with bf16 storage; the SRB plant step
+   (srb_sim.step's kernel) at B = 32,768 (the trot cell's) and 2048 with
+   the x-force and the six-component disturbance; the swing update at
+   32,768, 2048 and 1.  The SRB plant's launches are read on each srb-loop
+   path run in this process (exactly one a period on the
+   main path's timed periods; on the graphs path the eager warm-ups, as it
+   counts no capture or replay), none of which may be 0;
 3. drive the slice-1 main path: the walking trot of bench.py (vx = 0.3,
    gait phases spread over the batch, reference disturbance) at batch
    2048, h = 10, ADMM-30 in the fused stagewise kernel, as MPC periods of
@@ -42,14 +49,8 @@ result line) when it fails:
    reference's test_full_stack_trot_walks);
 5. time the single robot (B = 1): the composed tick and the controller
    tick alone, over two-period chains (bench.py's b=1 lines);
-6. hold the caller-built stagewise kernels against their plain versions:
-   fused_stagewise_solve (per-step c at the predictive path's shape, a
-   shared c at the tunable period's (B = 2048, h = 10), a ragged
-   long-horizon batch with a shared c, dense Ad, and a dense-Ad case
-   whose warm Newton-Schulz seeds fail the gate, so that the cold restart
-   runs), the streamed
-   solve at h = 128 and 72 (with the KKT residuals of both answers), and
-   srb_build_dump, also against the independent problem build;
+6. (the caller-built stagewise kernels: timed in phase 2, held to their
+   plain versions by the card tests);
 7. drive the slice-3 paths through mpc_step and srb_sim.step, the same
    bench trot: (a) the predictive disturbance horizon at B = 2048, h = 10,
    ADMM-30, run past the estimator's release (400 samples) so that the
@@ -60,21 +61,8 @@ result line) when it fails:
    ends in the warm KKT audit (return_qp; 6e-3 / 1e-3), and the fused-build
    lines also dump the kernel's own build (srb_build_dump) beside the
    audited problem;
-8. hold the slice-4 kernels against their plain versions: fused_kf_innovate
-   on conditioned seeded states at B = 2048, 37 and 1 (timed at 2048 and
-   1) and on states from
-   tick 3 of a cold start (the looser, stated tolerance; ticks 0 and 1 are
-   printed, not gated), the kernel's and the plain version's x' also within
-   a stated multiple of eps * cond(S) of float64 instance by instance, and
-   the "xla" backend's dense chain timed on the same inputs as the nearest
-   library figure; fused_admm_iterations at B = 2048, h = 10, 30
-   iterations in float32 and with bfloat16 storage, B = 37 at h = 16, B = 1,
-   B = 128 / 16 / 2 at h = 10 (the dry run's tiers 1 and 3 and their
-   chunks), h = 20 / 28 (resident) and one horizon past each resident size (23 / 31),
-   from zero and non-zero starts; past KC.admm_tol's calibration (h > 28,
-   KC.admm_f64_gated) the kernel is held to the float64 plain version
-   instead, no farther from it than KC.ADMM_F64_FACTOR times the float32
-   plain version;
+8. (the slice-4 kernels, fused_kf_innovate and fused_admm_iterations:
+   timed in phase 2, held to their plain versions by the card tests);
 9. drive the state-estimation tick (estimation/container.update with
    kf_backend="pallas") at B = 2048 for 500 ticks: a standing A1, the IMU
    yaw spread over +-pi, the scheduled contact phases those of the trot
@@ -277,44 +265,34 @@ object per kernel with its times and bound, and
 from __future__ import annotations
 
 import concurrent.futures
+import functools
 import json
 import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Callable, NamedTuple
+
+# the counts the benchmark's roofline shares use; port_bench/tests reads
+# pdip_row_flops and the peaks from here too
+from port_bench.counts import (
+    CROSS3, FORCE_CROSS, FP32_FLOPS_PER_S, HBM_BYTES_PER_S, MM3, MV3, MV6, TICK_FLOATS, XAPPLY,
+    XT_FORCE, bound, gemm_flops, pdip_row_flops, solve_bytes, solve_flops, spd_inv_flops,
+    wbc_flops,
+)
+from quad_periodic_mpc_tpu_torch.testing import kernel_cases as KC
+from quad_periodic_mpc_tpu_torch.tools.parity_table import (
+    EVIDENCE_ATOL, EVIDENCE_JAX_MISS, EVIDENCE_MISS, EVIDENCE_REL, EVIDENCE_SPREAD, GOLDEN_ATOL,
+    GOLDEN_RTOL, evidence_cell,
+)
 
 REPO = Path(__file__).resolve().parent
 BATCH, HORIZON, ADMM_ITERS, VX = 2048, 10, 30, 0.3
 WARM_PERIODS, TIMED_PERIODS, ROLLOUT_PERIODS = 3, 10, 3
-# the fused-build kernel vs its plain version at every (B, h, ADMM
-# iterations) of the paths that launch it, each timed: the main path's
-# first, then the h = 16 / 32 / 64 lines', the full stack's and the sweeps'
-# (phase 16: configs 3 and 4, the dry run's tier 2 oracle and chunks); then untimed ragged
-# batches (B = 133 is one block more than the card's SMs)
-SRB_SHAPES = ((BATCH, HORIZON, ADMM_ITERS, "main path"), (1024, 16, 40, "line h=16"),
-              (512, 32, 50, "line h=32"), (256, 64, 50, "line h=64"),
-              (256, HORIZON, ADMM_ITERS, "full stack"),
-              (1024, HORIZON, ADMM_ITERS, "config 3 sweep"),
-              (10000, HORIZON, ADMM_ITERS, "config 4 sweep"),
-              (16, 32, ADMM_ITERS, "dry run tier 2"),
-              (2, 32, ADMM_ITERS, "dry run tier 2 chunk"))     # 16 over 8 entries
-# the shapes phase 16 launches the kernel at (their launches are checked there)
+# the fused-build kernel's shapes (KC.PATH_CASES) that phase 16 launches it
+# at (their launches are checked there)
 SWEEP_SHAPES = ("config 3 sweep", "config 4 sweep", "dry run tier 2", "dry run tier 2 chunk")
-KERNEL_CASES = ((1000, HORIZON), (256, 48), (133, HORIZON), (1, HORIZON))
-# U and z are forces (~100 N): FMA contraction and summation order differ
-# between the kernel and the plain version's batched products, amplified
-# through 30 ADMM sweeps (this is the gate the JAX kernel is held to
-# against its XLA path).  y is rho-scaled (rho = 3e-4).
-TOL = {"U": 2e-3, "z": 2e-3, "y": 1e-5}
-# The long-horizon solve, 50 sweeps: the same sources of roundoff through a
-# chain of h (1 + 2 iters) dependent stage steps, 12,928 at h = 128 against
-# 610 at h = 10 (where the gap measures ~4e-4, and ~1e-3 at h = 48).  The
-# KKT residuals of the kernel's and the plain version's answers are held
-# together as well: the kernel's may exceed the plain version's by at most
-# a tenth plus 1e-4.
-TOL_STREAM = {"U": 5e-3, "z": 5e-3, "y": 1e-5}
-TOL_DUMP = 1e-6       # the same entries in exact f32; 3x3 products may round differently
 KKT_PRIMAL, KKT_DUAL = 6e-3, 1e-3
 # slice 3: (label, B, h, ADMM iterations, warm periods, timed periods, kernel)
 # The predictive line is audited at period 415, 15 periods after the
@@ -331,23 +309,10 @@ LONG_LINES = (
     ("h=32", 512, 32, 50, 6, LINE_TIMED, "fused_stagewise_solve_srb"),
     ("h=64", 256, 64, 50, 4, LINE_TIMED, "fused_stagewise_solve_srb"),
 )
-# torque tick: bench.py's full-stack batch, the kernel-check batches, and
-# the reference's trot-walks test (45 periods, vx = 0.15)
+# torque tick: bench.py's full-stack batch and the reference's trot-walks
+# test (45 periods, vx = 0.15)
 FS_BATCH, FS_VX, FS_PERIODS, FS_WARM, FS_TIMED = 256, 0.15, 45, 3, 10
-# (and the dry run's tier 3: 16 instances, 2 a chunk)
-TICK_CASES = (FS_BATCH, 1, 37, 16, 2)
 B1_CHAINS, B1_PERIODS = 10, 2
-# the SRB plant step (srb_sim.step on a card): the trot cell's batch and the
-# main path's; x' to testing/kernel_cases.SRB_PLANT_TOL, feet and t exactly
-SRB_PLANT_CASES = (32768, BATCH)
-# the swing update (mpc.swing_update on a card): the trot cell's batch, the
-# main path's and the single robot's; testing/kernel_cases.SWING_ULPS
-SWING_CASES = (32768, BATCH, 1)
-# kernel vs plain version, the tolerances of the reference's kernel tests
-# (tests/test_kinematics_kernel.py): f32 sums in another order.  The model
-# evaluation's, the WBC's and the plant's are testing/kernel_cases.MODEL_TOL,
-# WBC_TOL and PLANT_TOL, which say why they are what they are
-TICK_TOL = {"contact": {"Jc": 2e-5, "p_foot": 2e-5, "Jcdqd": 5e-4}}
 # slice 4: the estimation tick (KFParams.dt = 0.002: 500 ticks are 1 s) and
 # the condensed line (bench.py audits its sixth warm step)
 EST_TICKS, EST_PROFILE_TICKS, EST_XLA_TICKS = 500, 20, 300
@@ -357,18 +322,6 @@ EST_TICKS, EST_PROFILE_TICKS, EST_XLA_TICKS = 500, 20, 300
 # further of the two from float64, and is held once it settles
 EST_XLA_GAP = 2e-3
 CONDENSED_WARM, CONDENSED_TIMED = 6, 10
-KF_CASES = ((BATCH, 10), (37, 11), (1, 12))            # (B, seed)
-# (B, h, iterations, non-zero start, bf16 storage); the first two are the
-# main path's; h = 20 / 28 lie past the first design's resident sizes and
-# inside this one's, h = 23 / 31 just past this one's (K^-1 streamed)
-ADMM_CASES = ((BATCH, HORIZON, ADMM_ITERS, False, False), (BATCH, HORIZON, ADMM_ITERS, True, True),
-              (37, 16, 40, True, False), (37, 16, 40, False, True),
-              (1, HORIZON, ADMM_ITERS, True, False), (5, 20, ADMM_ITERS, True, False),
-              (5, 28, ADMM_ITERS, True, True), (5, 23, ADMM_ITERS, True, False),
-              (5, 31, ADMM_ITERS, True, True),
-              # the dry run's tier 1 (128 instances, 16 a chunk) and tier 3 (16, 2 a chunk)
-              (128, HORIZON, ADMM_ITERS, True, False), (16, HORIZON, ADMM_ITERS, True, False),
-              (2, HORIZON, ADMM_ITERS, True, False))
 # slice 5: the paper's adaptive-vs-baseline experiment at the bench's batch
 # and solver (the reference's gates, tests/test_closed_loop.py:69-92: vx rms
 # over periods 500 on), ls6 under the lateral wrench (its gate,
@@ -386,9 +339,9 @@ GO1_BATCH, GO1_PERIODS, GO1_VX = 256, 40, 0.2
 # held to JAX's worst plus a third
 SWEEP_W5000_PRIMAL = 0.02
 # the untuned fused-build period against the tuned caller-built one: each
-# kernel is held to its plain version at TOL["U"], and the two plain
-# versions lie ~2e-4 apart (tests/test_torch_tunable.py), allowed 1e-3
-TUNE_TOL = 2 * TOL["U"] + 1e-3
+# kernel is held to its plain version at KC.STAGEWISE_TOL["U"], and the two
+# plain versions lie ~2e-4 apart (tests/test_torch_tunable.py), allowed 1e-3
+TUNE_TOL = 2 * KC.STAGEWISE_TOL["U"] + 1e-3
 # slice 6: terrain in the loop, phase 14 (tests/test_terrain_loop.py:126-178's
 # doorstep experiment: 110 periods at vx = 0.25, the height-above-terrain rms
 # over the last 25, each instance's 96 x 96 map at 0.03 m) on the bench's
@@ -534,15 +487,13 @@ CLI_HEIGHT, CLI_HEIGHT_TOL, CLI_VX, CLI_VX_TOL = 0.29, 0.03, 0.3, 0.03
 # ADMM stops 200 iterations short of its fixed point, so float32 sums in
 # another order move it by up to a fifth of the gap itself)
 PARITY_TOL = 3e-4
-# 18f: tests/test_golden_qpoases.py's gates, |x - x_qpOASES| <= atol + rtol
-# |x_qpOASES| (set in float64); where float32 misses one, the largest gap
-# may be no more than 4/3 of JAX's own float32 XLA gap on the same QP
-GOLDEN_ATOL = {"admm": 2e-3, "pdip": 2e-3, "stagewise": 3e-3}
-GOLDEN_RTOL = 1e-3
-# JAX's figures, float32 on the CPU (tools/slice9_reference.py): parity's rows
-# for seeds 0-4 (ADMM-200 against PDIP-40, h = 10), and per golden scene
-# (fixtures.GOLDEN_SCENES) the largest |x - x_qpOASES| of ADMM-400, PDIP-40
-# and the stagewise ADMM-400
+# 18f: parity_table.GOLDEN_ATOL / GOLDEN_RTOL, tests/test_golden_qpoases.py's
+# gates; where float32 misses one, the largest gap may be no more than 4/3
+# of JAX's own float32 XLA gap on the same QP.  JAX's figures, float32 on
+# the CPU (tools/slice9_reference.py): parity's rows for seeds 0-4 (ADMM-200
+# against PDIP-40, h = 10), and per golden scene (fixtures.GOLDEN_SCENES)
+# the largest |x - x_qpOASES| of ADMM-400, PDIP-40 and the stagewise
+# ADMM-400
 PARITY_REF = {"worst_force_diff_N": 0.002143383026123047, "rows": [
     {"seed": 0, "admm_vs_pdip_max": 0.00140380859375, "primal": 4.0900813473854214e-05,
      "dual": 1.6391277313232422e-07},
@@ -574,35 +525,15 @@ GRAPH_PERIODS, GRAPH_TUNE_PERIODS, GRAPH_FS_EQUAL = 20, 3, 10
 GRAPH_B1_PERIODS, GRAPH_CHAINS, GRAPH_B1_EQUAL = 2, 20, 4
 TICK_BUDGET_MS = 2.0
 QUEUE_SLEEP_CYCLES = 200_000_000     # ~0.1 s at the H100's clock: longer than 21 calls' issue
-# H100 SXM: HBM3 rate and float32 (non-tensor-core) peak, NVIDIA data sheet
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS_PER_S = 67e12
-# slice 12: the evidence tools, phase 20.  20a: 18f's golden gate per
-# setting, else 4/3 of JAX's float32 gap on the cell.  A cell where JAX
-# misses by EVIDENCE_JAX_MISS N or more: a PDIP one (a lost float32 solve,
-# 20-80 N from draw to draw) is held to miss by EVIDENCE_MISS N or more;
-# an ADMM one (the loop stops short of its fixed point: the walking scenes'
-# production tails and the h = 16 f_est warm cells) within EVIDENCE_REL of
-# JAX's gap, as is each walking scene's applied first step (the H100 gave
-# both within 0.3 % of JAX's).  The issue's wider gates (a tail missing by
-# 0.1 N, a first step within EVIDENCE_FIRST_STEP x JAX's) are printed too.
-# The production setting's six solves on each of the 9 still scenes and
-# the 12 walking steps of each of the 6 walking scenes launch the fused
-# ADMM kernel, nothing else does
-EVIDENCE_ATOL = {"ADMM-400 cold": GOLDEN_ATOL["admm"], "ADMM-30 warm x6": GOLDEN_ATOL["admm"],
-                 "production warm x6": GOLDEN_ATOL["admm"], "PDIP-40": GOLDEN_ATOL["pdip"],
-                 "PDIP-40 spd": GOLDEN_ATOL["pdip"],
-                 "stagewise ADMM-400": GOLDEN_ATOL["stagewise"]}
-EVIDENCE_JAX_MISS, EVIDENCE_MISS, EVIDENCE_REL, EVIDENCE_FIRST_STEP = 1.0, 0.1, 0.02, 2.0
-# the cells held to 4/3 of the largest of JAX's gap and its 16 rounding draws
-# rather than of its one gap: on the H100 each misses 4/3 of JAX's own gap
-# within JAX's spread (h = 19 ADMM-400 0.0129 N against 0.0084, draws to
-# 0.0193; seed-6 f_est PDIP-40 0.0536 against 0.0267, draws to 0.270, and its
-# PDIP-40 spd 0.0324 against 0.0050, draws to 0.0512).  All three take the
-# "xla" ADMM loop or PDIP, no hand-written kernel
-EVIDENCE_SPREAD = {("h=19 seed=7 seg=3", "ADMM-400 cold"),
-                   ("h=10 seed=6 seg=1 f_est", "PDIP-40"),
-                   ("h=10 seed=6 seg=1 f_est", "PDIP-40 spd")}
+# slice 12: the evidence tools, phase 20.  20a holds each cell of the gap
+# table by parity_table.evidence_cell, and each walking scene's applied
+# first step within EVIDENCE_REL of JAX's (the H100 gave both within 0.3 %
+# of JAX's).  The wider walking gates (a tail missing by 0.1 N, a first
+# step within EVIDENCE_FIRST_STEP x JAX's) are printed too.  The
+# production setting's six solves on each of the 9 still scenes and the 12
+# walking steps of each of the 6 walking scenes launch the fused ADMM
+# kernel, nothing else does
+EVIDENCE_FIRST_STEP = 2.0
 EVIDENCE_LAUNCHES = 9 * 6 + 6 * 12
 # JAX's figures on the CPU, float32 (tools/slice12_reference.py --part parity): per
 # scene and setting [its gap, the largest over its 16 rounding draws] (N); the
@@ -743,79 +674,9 @@ def card_line() -> str:
 
 
 # ---------------------------------------------------------------------------
-# work counts for the bound (operations counted from the kernel's loops)
+# work counts for the bound (operations counted from the kernel's loops),
+# beside the ones port_bench/counts.py keeps for the benchmark
 # ---------------------------------------------------------------------------
-
-def solve_flops(B: int, h: int, iters: int, ns_it: int, ns_warm: int,
-                rescued: int, assemble: bool = True, srb_ad: bool = True,
-                stream: bool = False) -> int:
-    """Floating-point operations of one stagewise solve (multiply and add
-    each count one), from the loops of csrc/stagewise_body.cuh.  ``rescued``
-    is the number of (instance, stage) warm inverses that failed the gate
-    and restarted cold in this run's data (the plain version counts them).
-    assemble: the in-kernel SRB build (the fused-build kernel); srb_ad: Ad
-    products over 7 live terms and Bd's row 12 skipped, else 13 dense terms;
-    stream: r_lin and q recomputed in the sweeps."""
-    mm12 = 144 * 23                    # one 12x12x12 product
-    ns_round = 2 * mm12 + 144
-    norm = 3 * 144
-    n_ad = 14 if srb_ad else 25        # one entry of an Ad product
-    n_bd = 23 if srb_ad else 25        # one entry of a contraction against Bd
-    riccati_stage = (156 * n_bd + 144 * (n_bd + 1) + 156 * n_ad + 3588 + 325
-                     + 2 * 169 * n_ad + 3887 + 676)
-    warm_inverse = 3 * mm12 + 2 * norm + 3 * 144 + 2 + (ns_warm - 1) * ns_round
-    cold_inverse = norm + ns_it * ns_round
-    r_lin = 148
-    backward = r_lin + 13 + 12 * (n_bd + 1) + 13 * n_ad + 299 + 26
-    forward = (12 * (n_bd + 1) + 276 + 300 + 24 + 13 * n_ad + 299 + 26 + 36 + 100 + 60
-               + 80 + 60)
-    if stream:
-        backward += 26                 # q_k = -Q xref_{k-1}
-        forward += r_lin
-    per_instance = (
-        (54 + 4 * 110 + 12 + 31 if assemble else 0) + h * riccati_stage + cold_inverse
-        + (h - 1) * warm_inverse + h * iters * (backward + forward))
-    return B * per_instance + rescued * (cold_inverse + 144)
-
-
-def solve_bytes(B: int, h: int, built: bool = False, per_step_c: bool = False) -> int:
-    """Each input read once, each output written once (float32).  built:
-    caller-built Ad, Bd and c instead of the raw observation."""
-    dynamics = 169 + 156 + (h * 13 if per_step_c else 13) if built else 9 + 12 + 1 + 6
-    per_instance = dynamics + 13 + h * (13 + 20 + 20 + 12 + 20 + 20)
-    shared = 13 + 144 + 15
-    outputs = h * (12 + 20 + 20)
-    return 4 * (B * (per_instance + outputs) + shared)
-
-
-# Operation counts of the torque-tick kernels' building blocks (multiply and
-# add each count one; csrc/kinematics.cu, wbc.cu, plant.cu)
-MM3, MV3, CROSS3 = 45, 15, 9
-XAPPLY = 2 * MV3 + CROSS3 + 3             # X(R, r) v
-XT_FORCE = 2 * MV3 + CROSS3 + 3           # X(R, r)^T f
-FORCE_CROSS = 3 * CROSS3 + 3
-MV6 = 6 * 11
-
-
-def gemm_flops(r: int, k: int, s: int) -> int:
-    return r * s * (2 * k - 1)
-
-
-# warp_linalg.cuh inv3 (the damped 3x3 closed form); wbc.cu cone_apply and
-# cone_apply_T (the four legs' 6x3 friction blocks) and max_step (24 rows)
-INV3 = 3 + 6 * 3 + 5 + 1 + 9
-CONE_APPLY, CONE_APPLY_T = 4 * 11, 4 * 14
-MAX_STEP = 24 * 2 + 2
-
-
-def spd_inv_flops(n: int) -> int:
-    """The recursive Schur inverse (warp_linalg.cuh SpdInv)."""
-    if n <= 3:
-        return {1: 1, 2: 8, 3: INV3}[n]
-    h, r = (n + 1) // 2, n - (n + 1) // 2
-    return (spd_inv_flops(h) + gemm_flops(h, h, r) + gemm_flops(r, h, r) + r * r
-            + spd_inv_flops(r) + gemm_flops(h, r, r) + gemm_flops(h, r, h) + h * h)
-
 
 def contact_kinematics_flops(rotors: bool) -> int:
     """Per instance: the tree walk, bias accelerations, four foot walks."""
@@ -837,59 +698,6 @@ def model_eval_flops() -> int:
         2 * XT_FORCE + 14)
     return (contact_kinematics_flops(True) + crba + h_asm + spd_inv_flops(18) + grav
             + cori)
-
-
-def pdip_row_flops() -> int:
-    """The row and vector work of one PDIP iteration besides the KKT
-    inverse and its three mat-vecs (wbc.cu: the floors, A x, the dual
-    residual, the complementarity sums, the rows' residuals, the KKT
-    right-hand side and matrix, the step, its length and the update), loop
-    by loop, each counted once: the lanes share it out (one a cone row or
-    a variable) and every lane repeats the two row-ordered sums, which
-    counts once here as the work the function needs.  The step's ratio is
-    counted on every row and the update on every iteration: an upper count
-    where a row's step does not shrink or an instance freezes."""
-    NJ, NCON = 12, 24
-    floors = 4 * NCON                                   # fmaxf on sl, su, zl, zu
-    rdual = CONE_APPLY + NCON + CONE_APPLY_T + NJ * (2 * NJ - 1 + 2)
-    mu_t = 2 * (2 * NCON - 1) + 2 + 2                   # the two sums, mu_c, mu_t
-    rows = NCON * (2 + 2 + 2 + 2 + 3)                   # r_pl, r_pu, r_cl, r_cu, d
-    rhs = 2 * (3 * NCON + CONE_APPLY_T) + 2 * NJ
-    kkt = 4 * (4 * 3 + 11 + 7) + NJ                     # the legs' blocks, reg
-    step = CONE_APPLY + NCON * (1 + 1 + 3 + 3) + 4 * MAX_STEP + 3
-    update = 2 * NJ + 4 * 2 * NCON
-    return floors + rdual + mu_t + rows + rhs + kkt + step + update
-
-
-def wbc_flops(iters: int) -> int:
-    """Per instance, from wbc.cu's loops: the masking, KinWBC, the WBIC
-    cascade, the QP set-up, `iters` PDIP iterations and the torques."""
-    ND, NJ, NCON = 18, 12, 24
-    task_J = lambda i: gemm_flops(3, 3 if i < 2 else ND, ND)
-    task_v = lambda i: gemm_flops(3, 3 if i < 2 else ND, 1)
-    proj = gemm_flops(ND, ND, 3) + gemm_flops(ND, 3, ND) + ND * ND
-    mask = 3 * NJ * ND + NJ
-    kin = (gemm_flops(NJ, ND, NJ) + NJ + spd_inv_flops(NJ)
-           + gemm_flops(ND, NJ, NJ) + gemm_flops(ND, NJ, ND) + ND)
-    for i in range(6):
-        kin += task_J(i) + gemm_flops(3, ND, 3) + INV3 + gemm_flops(ND, 3, 3)
-        kin += 2 * gemm_flops(ND, 3, 1) + (0 if i == 0 else 2 * task_v(i) + 6 + 2 * ND)
-        kin += proj if i < 5 else 0
-    kin += NJ                                                    # des_jpos
-    wbic = (gemm_flops(ND, ND, NJ) + gemm_flops(NJ, ND, NJ) + NJ + spd_inv_flops(NJ)
-            + gemm_flops(ND, NJ, NJ) + gemm_flops(ND, NJ, 1) + gemm_flops(ND, NJ, ND) + ND)
-    for i in range(6):
-        wbic += (task_J(i) + gemm_flops(ND, ND, 3) + gemm_flops(3, ND, 3) + INV3
-                 + gemm_flops(ND, 3, 3) + task_v(i) + 6 + gemm_flops(ND, 3, 1) + ND)
-        wbic += proj if i < 5 else 0
-    resid = 6 * ((2 * ND - 1) + (2 * NJ - 1) + 2)
-    bounds = CONE_APPLY + 4 + 2 * NCON                           # l, u - l
-    qp_setup = (resid + spd_inv_flops(6) + gemm_flops(6, 6, 1) + gemm_flops(6, 6, NJ)
-                + NJ * NJ * (2 * 6 - 1 + 2) + NJ * (2 * 6 - 1 + 1) + bounds)
-    pdip_iter = (pdip_row_flops() + spd_inv_flops(NJ) + 3 * gemm_flops(NJ, NJ, 1)
-                 + 2 * NJ)
-    finish = NJ + 6 * (2 * NJ - 1 + 2) + NJ * ((2 * ND - 1) + (2 * NJ - 1) + 2)
-    return mask + kin + wbic + qp_setup + iters * pdip_iter + finish
 
 
 def substep_flops(substeps: int) -> int:
@@ -949,22 +757,6 @@ def admm_flops(n: int, m: int, iters: int) -> int:
 def admm_bytes(B: int, n: int, m: int) -> int:
     """K^{-1}, q, x0 and l, u, rho, z0, y0 read once, x, z, y written once."""
     return 4 * (B * (n * n + 2 * n + 5 * m + n + 2 * m) + 15)
-
-
-# floats per instance (inputs, outputs) and shared, each read or written once
-TICK_FLOATS = {
-    "model": (37, 324 + 324 + 18 + 18 + 216 + 12 + 12, 4 * 432 + 36 + 12),
-    "contact": (37, 216 + 12 + 12, 432 + 12),
-    "wbc": (324 + 324 + 18 + 216 + 12 + 4 + 9 + 4 * 18 + 12 + 12, 4 * 12, 0),
-    "plant": (4 + 3 + 6 + 12 + 12 + 8 + 12 + 324 + 18 + 18 + 216 + 12,
-              4 + 3 + 6 + 12 + 12 + 8 + 12 + 4, 0),
-}
-
-
-def bound(flops: int, nbytes: int) -> tuple[float, str]:
-    t_ops = 1e3 * flops / FP32_FLOPS_PER_S
-    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 # ---------------------------------------------------------------------------
@@ -1040,415 +832,233 @@ def kernel_ms(fn, reps: int, symbol: str) -> tuple[float, float]:
     return sum(e.self_device_time_total for e in rows) / 1e3 / launches, per_call
 
 
-def compare_kernels(device, card: str) -> dict:
-    """The fused-build kernel against its plain version at SRB_SHAPES, each
-    timed (its record's "shapes"; launches are filled in from the paths),
-    and at KERNEL_CASES.  Returns its record."""
+class Row(NamedTuple):
+    """One hand-written kernel of the table (PERF.md section 6's row): its
+    record's and launch counter's name (its key in KC.PATH_CASES, whose
+    cases it is gated and timed at, the first also beside its plain
+    version), the device symbol the profiler must see, its source and the
+    TPU kernel it replaces.  case(*arguments) builds testing/kernel_cases'
+    seeded inputs and returns (kernel call, plain call, gate, flops,
+    bytes[, the nearest library call]), gate() the kernel's KC comparison
+    on the two calls' outputs.  reps: calls timed of the kernel and of the
+    plain version."""
+    name: str
+    symbol: str
+    source: str
+    replaces: str | None
+    case: Callable
+    reps: tuple = (20, 3)
+
+
+def kernel_rows(device) -> list[Row]:
+    """Rows 1-12 of PERF.md section 6, in its order."""
+    from quad_periodic_mpc_tpu_torch.config import MPCConfig
+    from quad_periodic_mpc_tpu_torch.control import mpc as M
+    from quad_periodic_mpc_tpu_torch.control.wbc import WBCGains
+    from quad_periodic_mpc_tpu_torch.estimation import kf as KF
+    from quad_periodic_mpc_tpu_torch.models import floating_base as fb
+    from quad_periodic_mpc_tpu_torch.ops.cuda import admm_kernel as AK
+    from quad_periodic_mpc_tpu_torch.ops.cuda import kf_kernel as FK
+    from quad_periodic_mpc_tpu_torch.ops.cuda import kinematics_kernel as KK
+    from quad_periodic_mpc_tpu_torch.ops.cuda import plant_kernel as PK
+    from quad_periodic_mpc_tpu_torch.ops.cuda import stagewise_kernel as SK
+    from quad_periodic_mpc_tpu_torch.ops.cuda import wbc_kernel as WK
+    from quad_periodic_mpc_tpu_torch.sim import srb_sim as S
+    from quad_periodic_mpc_tpu_torch.sim.articulated_sim import ContactParams
+
+    mc, gains, params, cfg = (fb.build_a1_constants("float32", str(device)), WBCGains(),
+                              ContactParams(), MPCConfig())
+
+    def gated(run, plain, compare):     # compare(kernel's outputs, plain version's)
+        return run, plain, lambda: compare(run(), plain())
+
+    def tick(key, B, flops):        # a torque-tick kernel's work at batch B
+        per_in, per_out, shared = TICK_FLOATS[key]
+        return B * flops, 4 * (B * (per_in + per_out) + shared)
+
+    def srb(B, h, iters, seed):
+        args, kw = KC.stagewise_case(B, h, seed=seed, device=device, iters=iters)
+        rescued = SK.rescues()
+        SK.fused_stagewise_solve_srb(*args, **kw)    # the kernel's own count of cold restarts
+        rescued = SK.rescues() - rescued
+        ns = kw["ns_it"]
+        return (*gated(lambda: SK.fused_stagewise_solve_srb(*args, **kw),
+                       lambda: SK.fused_stagewise_solve_srb_reference(*args, **kw),
+                       KC.stagewise_mismatches),
+                solve_flops(B, h, iters, ns, SK.ns_warm_rounds(ns), rescued), solve_bytes(B, h))
+
+    def built(B, h, per_step_c, dense_ad, seed):
+        args, kw = KC.solve_case(B, h, seed=seed, device=device, iters=ADMM_ITERS,
+                                 per_step_c=per_step_c, dense_ad=dense_ad)
+        kw["srb_ad"] = not dense_ad
+        stats = {}
+        SK.fused_stagewise_solve_reference(*args, **kw, stats=stats)
+        ns = kw["ns_it"]
+        return (*gated(lambda: SK.fused_stagewise_solve(*args, **kw),
+                       lambda: SK.fused_stagewise_solve_reference(*args, **kw),
+                       KC.stagewise_mismatches),
+                solve_flops(B, h, ADMM_ITERS, ns, SK.ns_warm_rounds(ns), stats["rescued"],
+                            assemble=False),
+                solve_bytes(B, h, built=True, per_step_c=per_step_c))
+
+    def stream(B, h, per_step_c, warm, seed):
+        args, kw, sw = KC.solve_case(B, h, seed=seed, device=device, iters=STREAM_ITERS,
+                                     per_step_c=per_step_c, with_problem=True)
+        if warm:
+            args[10:] = [w.contiguous() for w in SK.fused_stagewise_solve_stream(
+                *args, **dict(kw, iters=5))]
+        stats = {}
+        SK.fused_stagewise_solve_stream_reference(*args, **kw, stats=stats)
+        ns = kw["ns_it"]
+        return (*gated(lambda: SK.fused_stagewise_solve_stream(*args, **kw),
+                       lambda: SK.fused_stagewise_solve_stream_reference(*args, **kw),
+                       lambda got, want: KC.stagewise_mismatches(got, want, KC.STREAM_TOL,
+                                                                 None if warm else sw)),
+                solve_flops(B, h, STREAM_ITERS, ns, SK.ns_warm_rounds(ns), stats["rescued"],
+                            assemble=False, stream=True),
+                solve_bytes(B, h, built=True, per_step_c=per_step_c))
+
+    def model(B):
+        st = KC.model_states(B, seed=KC.MODEL_SEED, device=device)
+        return (*gated(lambda: KK.fused_model_eval(st, mc), lambda: KK.model_eval_reference(st, mc),
+                       KC.model_eval_mismatches),
+                *tick("model", B, model_eval_flops()))
+
+    def contact(B):
+        st = KC.model_states(B, seed=KC.CONTACT_SEED, device=device)
+        return (*gated(lambda: KK.fused_contact_kinematics(st, mc),
+                       lambda: fb.contact_jacobians(st, mc), KC.contact_mismatches),
+                *tick("contact", B, contact_kinematics_flops(False)))
+
+    def wbc(B):
+        args = KC.wbc_kernel_args(*KC.wbc_state_and_input(B, device=device))
+        return (*gated(lambda: WK.fused_wbc(*args, gains, KC.WBC_PDIP),
+                       lambda: WK.fused_wbc_reference(*args, gains, KC.WBC_PDIP),
+                       KC.wbc_mismatches),
+                *tick("wbc", B, wbc_flops(KC.WBC_PDIP.iterations)))
+
+    def substeps(B):
+        p0, tau, cache, Jc, pf = KC.plant_case(B, device=device)
+        run = lambda fn: fn(p0, tau, 2e-4, params, cache, Jc, pf, 10)
+        return (*gated(lambda: run(PK.fused_substeps), lambda: run(PK.fused_substeps_reference),
+                       KC.substeps_mismatches),
+                *tick("plant", B, substep_flops(10)))
+
+    def dump(B, seed):
+        args, sw = KC.srb_dump_case(B, seed=seed, device=device)
+        return (*gated(lambda: SK.srb_build_dump(*args), lambda: SK.srb_assemble(*args),
+                       lambda got, want: KC.dump_mismatches(got, want, sw)),
+                B * (54 + 4 * 110 + 12 + 31 + 13), 4 * B * (28 + 338))
+
+    def kf(B, seed):
+        args = KC.kf_case(B, seed=seed, device=device)
+        return (*gated(lambda: FK.fused_kf_innovate(*args, dt=KC.KF_DT),
+                       lambda: FK.fused_kf_innovate_reference(*args, dt=KC.KF_DT),
+                       functools.partial(KC.kf_mismatches, args)),
+                B * kf_flops(), 4 * B * 761,
+                # not one library call but the nearest thing: the "xla"
+                # backend's dense chain on PyTorch's batched products
+                lambda: KF.dense_predict_innovate(*args, KF.KFParams(dt=KC.KF_DT)))
+
+    def admm(B, h, iters, warm, bf16, seed):
+        args = KC.admm_case(B, h, seed=seed, device=device, warm=warm)
+        kw = dict(iters=iters, kinv_bf16=bf16)
+        n, m = 12 * h, 20 * h
+        return (*gated(lambda: AK.fused_admm_iterations(*args, **kw),
+                       lambda: AK.fused_admm_iterations_reference(*args, **kw),
+                       lambda got, want: KC.admm_mismatches(args, got, want, **kw)),
+                B * admm_flops(n, m, iters), admm_bytes(B, n, m))
+
+    def plant(B, wrench, seed):
+        args = KC.srb_plant_case(B, seed=seed, device=device, wrench=wrench)
+        return (*gated(lambda: S.step_kernel(*args, cfg, 0.002),
+                       lambda: S.step_dense(*args, cfg, 0.002), KC.srb_plant_mismatches),
+                B * srb_plant_flops(wrench), srb_plant_bytes(B, wrench))
+
+    def swing(B, seed):
+        args = KC.swing_update_case(B, seed=seed, device=device)
+        return (lambda: M.swing_update_kernel(*args), lambda: M.swing_update_plain(*args),
+                lambda: KC.swing_update_mismatches(args), 0, swing_update_bytes(B))
+
+    tpu = "quad_periodic_mpc_tpu/ops/pallas/"
+    return [
+        Row("fused_stagewise_solve_srb", "stagewise_srb_kernel", "stagewise_srb.cu",
+            tpu + "stagewise_kernel.py:753", srb, (20, 2)),
+        Row("fused_model_eval", "model_eval_kernel", "kinematics.cu",
+            tpu + "kinematics_kernel.py:727", model),
+        Row("fused_wbc", "wbc_kernel", "wbc.cu", tpu + "wbc_kernel.py:493", wbc),
+        Row("fused_substeps", "plant_kernel", "plant.cu", tpu + "plant_kernel.py:224", substeps),
+        Row("fused_contact_kinematics", "contact_kinematics_kernel", "kinematics.cu",
+            tpu + "kinematics_kernel.py:286", contact),
+        Row("fused_stagewise_solve", "stagewise_solve_kernel", "stagewise_solve.cu",
+            tpu + "stagewise_kernel.py:610", built, (20, 2)),
+        Row("fused_stagewise_solve_stream", "stagewise_stream_kernel", "stagewise_stream.cu",
+            tpu + "stagewise_kernel.py:1103", stream, (3, 1)),
+        Row("srb_build_dump", "srb_build_dump_kernel", "stagewise_srb.cu",
+            tpu + "stagewise_kernel.py:1225", dump),
+        Row("fused_kf_innovate", "kf_kernel", "kf.cu", tpu + "kf_kernel.py:159", kf),
+        Row("fused_admm_iterations", "admm_kernel", "admm.cu", tpu + "admm_kernel.py:138", admm),
+        Row("srb_plant_step", "srb_plant_step_kernel", "srb_plant.cu", None, plant, (20, 5)),
+        Row("swing_update", "swing_update_kernel", "swing_update.cu", None, swing, (20, 5)),
+    ]
+
+
+def kernel_table(device, card: str) -> dict:
+    """Phase 2: every hand-written kernel of kernel_rows at each of its
+    KC.PATH_CASES, held to its plain version by its KC comparison (a
+    non-finite output fails it too) and timed (device ms a launch from the
+    profiler, ms a call between CUDA events; the plain version at the first
+    case) against its bound.  Returns {name: record} in the rows' order,
+    with the largest |kernel - plain| of each case and of the row
+    ("max_abs_err"), "launches" 0 for the driven paths to fill in."""
     import torch
 
-    from quad_periodic_mpc_tpu_torch.ops.cuda import stagewise_kernel as SK
-    from quad_periodic_mpc_tpu_torch.testing import kernel_cases
+    from quad_periodic_mpc_tpu_torch.utils.telemetry import leaves
 
-    shapes, plain_ms = [], None
-    cases = [*SRB_SHAPES, *((B, h, ADMM_ITERS, None) for B, h in KERNEL_CASES)]
-    for i, (B, h, iters, path) in enumerate(cases):
-        args, kw = kernel_cases.stagewise_case(B, h, seed=100 + i, device=device, iters=iters)
-        got = SK.fused_stagewise_solve_srb(*args, **kw)
-        torch.cuda.synchronize()
-        stats = {}
-        want = SK.fused_stagewise_solve_srb_reference(*args, **kw, stats=stats)
-        errs = {n: float((g - w).abs().max()) for n, g, w in zip("Uzy", got, want)}
-        finite = all(bool(torch.isfinite(g).all()) for g in got)
-        print(f"[kernel] stagewise_srb B={B} h={h} ADMM-{iters}: max|dU|={errs['U']:.3g} "
-              f"(tol {TOL['U']}), max|dz|={errs['z']:.3g} (tol {TOL['z']}), "
-              f"max|dy|={errs['y']:.3g} (tol {TOL['y']}), rescued stages "
-              f"{stats['rescued']}")
-        check(finite, f"kernel output not finite at B={B} h={h}")
-        for n in "Uzy":
-            check(errs[n] <= TOL[n], f"kernel disagrees with plain version: "
-                  f"max|d{n}|={errs[n]} > {TOL[n]} at B={B} h={h}")
-        if path is None:
-            continue
-        ms, call_ms = kernel_ms(lambda: SK.fused_stagewise_solve_srb(*args, **kw), 20,
-                                "stagewise_srb_kernel")
-        flops = solve_flops(B, h, iters, kw["ns_it"], SK.ns_warm_rounds(kw["ns_it"]),
-                            stats["rescued"])
-        nbytes = solve_bytes(B, h)
-        bound_ms, bound_by = bound(flops, nbytes)
-        shapes.append({"path": path, "B": B, "h": h, "iters": iters, "launches": 0,
-                       "ms": ms, "call_ms": call_ms, "bound_ms": bound_ms,
-                       "bound_by": bound_by, "max_abs_err": max(errs.values())})
-        plain = ""
-        if plain_ms is None:                        # the main path's shape
-            plain_ms = time_ms(lambda: SK.fused_stagewise_solve_srb_reference(*args, **kw), 2)
-            plain = f", plain version {plain_ms:.1f} ms"
-        print(f"[kernel] B={B} h={h} ADMM-{iters} ({path}): kernel {ms:.3f} ms on the "
-              f"device ({call_ms:.3f} ms per call){plain}, bound {bound_ms:.4f} ms "
-              f"({flops:.3e} flop, {nbytes} B) on {card}")
-    main = shapes[0]
-    return {
-        "name": "fused_stagewise_solve_srb", "route": "cuda",
-        "source": "quad_periodic_mpc_tpu_torch/csrc/stagewise_srb.cu",
-        "replaces": "quad_periodic_mpc_tpu/ops/pallas/stagewise_kernel.py:753",
-        "launches": 0, "max_abs_err": max(r["max_abs_err"] for r in shapes),
-        "ms": main["ms"], "plain_ms": plain_ms, "bound_ms": main["bound_ms"],
-        "bound_by": main["bound_by"], "library_ms": None, "shapes": shapes,
-    }
+    records = {}
+    for row in kernel_rows(device):
+        shapes, plain_ms, library_ms = [], None, None
+        for path, args in KC.PATH_CASES[row.name].items():
+            run, plain, gate, flops, nbytes, *library = row.case(*args)
+            what = f"{row.name} {path} {list(args)}"
+            bad, gaps = gate()
+            print(f"[kernel] {what}: largest |kernel - plain| "
+                  + ", ".join(f"{n} {g:.3g}" for n, g in gaps.items()))
+            check(not bad, f"{what} disagrees with its plain version in {bad}")
+            ms, call_ms = kernel_ms(run, row.reps[0], row.symbol)
+            bound_ms, by = bound(flops, nbytes)
+            shapes.append({"path": path, "args": list(args), "ms": ms, "call_ms": call_ms,
+                           "bound_ms": bound_ms, "bound_by": by,
+                           "max_abs_err": max(g for n, g in gaps.items() if " " not in n)})
+            line = f"[kernel] {what}: kernel {ms:.5f} ms on the device ({call_ms:.4f} ms per call)"
+            if plain_ms is None:
+                plain_ms = time_ms(plain, row.reps[1])
+                line += f", plain version {plain_ms:.3f} ms"
+                if library:
+                    check(all(bool(torch.isfinite(t).all()) for t in leaves(library[0]())),
+                          f"{what}: the library call's output not finite")
+                    library_ms = time_ms(library[0], row.reps[1])
+                    line += f", library {library_ms:.3f} ms"
+            print(f"{line}, bound {bound_ms:.6f} ms ({by}; {flops:.3e} flop, {nbytes} B) "
+                  f"on {card}")
+        main = shapes[0]
+        records[row.name] = {
+            "name": row.name, "route": "cuda",
+            "source": "quad_periodic_mpc_tpu_torch/csrc/" + row.source,
+            "replaces": row.replaces, "launches": 0,
+            "max_abs_err": max(s["max_abs_err"] for s in shapes), "ms": main["ms"],
+            "plain_ms": plain_ms, "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": library_ms, "shapes": shapes}
+    for i, rec in enumerate(records.values(), 1):
+        print(f"[kernel table] {i:2d} {rec['name']}: " + "; ".join(
+            f"{s['path']} {s['ms']:.5f} ms (bound {s['bound_ms']:.6f})" for s in rec["shapes"])
+            + f"; plain version {rec['plain_ms']:.3f} ms; largest gap {rec['max_abs_err']:.3g} "
+            f"on {card}")
+    return records
 
 
 def _maxdiff(a, b) -> float:
     return float((a - b).abs().max())
-
-
-def compare_solve_kernels(device, card: str) -> dict:
-    """The caller-built stagewise kernels (fused_stagewise_solve, its
-    streamed variant, srb_build_dump) against their plain versions, from
-    seeded numpy inputs; each timed at its path's shape.  Returns
-    {name: record}."""
-    import torch
-
-    from quad_periodic_mpc_tpu_torch.ops import qp_stagewise
-    from quad_periodic_mpc_tpu_torch.ops.cuda import stagewise_kernel as SK
-    from quad_periodic_mpc_tpu_torch.testing import kernel_cases as KC
-
-    csrc = "quad_periodic_mpc_tpu_torch/csrc/"
-    tpu = "quad_periodic_mpc_tpu/ops/pallas/stagewise_kernel.py:"
-    records = {}
-
-    def record(name, source, line, worst, ms, plain_ms, flops, nbytes):
-        bound_ms, bound_by = bound(flops, nbytes)
-        records[name] = {
-            "name": name, "route": "cuda", "source": csrc + source, "replaces": tpu + line,
-            "launches": 0, "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
-        return bound_ms, bound_by
-
-    def solve_case(name, fn, plain, tol, B, h, iters, per_step_c, dense_ad, seed, kkt,
-                   rescue=False):
-        if rescue:          # dense Ad whose warm NS seeds fail the gate
-            (args, kw), sw = KC.rescue_case(B, h, seed=seed, device=device, iters=iters), None
-        else:
-            args, kw, sw = KC.solve_case(B, h, seed=seed, device=device, iters=iters,
-                                         per_step_c=per_step_c, dense_ad=dense_ad,
-                                         with_problem=True)
-        if name == "fused_stagewise_solve":
-            kw["srb_ad"] = not dense_ad
-        got = fn(*args, **kw)
-        torch.cuda.synchronize()
-        stats = {}
-        want = plain(*args, **kw, stats=stats)
-        errs = {n: _maxdiff(g, w) for n, g, w in zip("Uzy", got, want)}
-        what = (f"{name} B={B} h={h} ADMM-{iters} "
-                f"{'per-step' if per_step_c else 'shared'} c"
-                f"{', dense Ad' if dense_ad else ''}{', rescue case' if rescue else ''}")
-        print(f"[kernel] {what}: " + ", ".join(
-            f"max|d{n}|={errs[n]:.3g} (tol {tol[n]})" for n in "Uzy")
-            + f", rescued stages {stats['rescued']}")
-        check(all(bool(torch.isfinite(g).all()) for g in got), f"{what}: output not finite")
-        for n in "Uzy":
-            check(errs[n] <= tol[n], f"{what} disagrees with its plain version: "
-                  f"max|d{n}|={errs[n]} > {tol[n]}")
-        check(not rescue or stats["rescued"] > 0, f"{what}: no stage was rescued")
-        if kkt:
-            res_k, res_p = (qp_stagewise.kkt_residuals(sw, *out) for out in (got, want))
-            for r in ("primal", "dual"):
-                k_, p_ = float(res_k[r].max()), float(res_p[r].max())
-                print(f"[kernel] {what}: KKT {r} max {k_:.3g} (kernel) / {p_:.3g} (plain)")
-                check(k_ <= 1.1 * p_ + 1e-4, f"{what}: the kernel's KKT {r} residual {k_} "
-                      f"exceeds the plain version's {p_}")
-        return args, kw, stats, max(errs.values())
-
-    # ---- fused_stagewise_solve ----
-    name = "fused_stagewise_solve"
-    worst = 0.0
-    # the last case is the predictive path's shape (timed); the two before it
-    # the tunable period's (slice 5: shared c) and cli live's (slice 9: the
-    # same layout at B = 1)
-    for B, h, per_step_c, dense_ad, seed in ((37, 48, False, False, 201),
-                                             (37, HORIZON, True, True, 202),
-                                             (BATCH, HORIZON, False, False, 203),
-                                             (1, HORIZON, False, False, 204),
-                                             (BATCH, HORIZON, True, False, 200)):
-        args, kw, stats, err = solve_case(
-            name, SK.fused_stagewise_solve, SK.fused_stagewise_solve_reference, TOL,
-            B, h, ADMM_ITERS, per_step_c, dense_ad, seed, kkt=False)
-        worst = max(worst, err)
-    worst = max(worst, solve_case(
-        name, SK.fused_stagewise_solve, SK.fused_stagewise_solve_reference, TOL, 5, HORIZON,
-        ADMM_ITERS, False, True, 7, kkt=False, rescue=True)[3])
-    ms, call_ms = kernel_ms(lambda: SK.fused_stagewise_solve(*args, **kw), 20,
-                            "stagewise_solve_kernel")
-    plain_ms = time_ms(lambda: SK.fused_stagewise_solve_reference(*args, **kw), 2)
-    flops = solve_flops(BATCH, HORIZON, ADMM_ITERS, kw["ns_it"], SK.ns_warm_rounds(kw["ns_it"]),
-                        stats["rescued"], assemble=False)
-    nbytes = solve_bytes(BATCH, HORIZON, built=True, per_step_c=True)
-    bound_ms, by = record(name, "stagewise_solve.cu", "610", worst, ms, plain_ms, flops, nbytes)
-    print(f"[kernel] {name} B={BATCH} h={HORIZON}: kernel {ms:.3f} ms on the device "
-          f"({call_ms:.3f} ms per call), plain version {plain_ms:.1f} ms, bound "
-          f"{bound_ms:.4f} ms ({by}; {flops:.3e} flop, {nbytes} B) on {card}")
-
-    # ---- fused_stagewise_solve_stream ----
-    name = "fused_stagewise_solve_stream"
-    worst = 0.0
-    for B, h, per_step_c, seed in ((5, 72, True, 211), (128, 128, False, 210)):
-        args, kw, stats, err = solve_case(
-            name, SK.fused_stagewise_solve_stream, SK.fused_stagewise_solve_stream_reference,
-            TOL_STREAM, B, h, STREAM_ITERS, per_step_c, False, seed, kkt=True)
-        worst = max(worst, err)
-    ms, call_ms = kernel_ms(lambda: SK.fused_stagewise_solve_stream(*args, **kw), 3,
-                            "stagewise_stream_kernel")
-    plain_ms = time_ms(lambda: SK.fused_stagewise_solve_stream_reference(*args, **kw), 1)
-    flops = solve_flops(128, 128, STREAM_ITERS, kw["ns_it"], SK.ns_warm_rounds(kw["ns_it"]),
-                        stats["rescued"], assemble=False, stream=True)
-    nbytes = solve_bytes(128, 128, built=True)
-    bound_ms, by = record(name, "stagewise_stream.cu", "1103", worst, ms, plain_ms, flops,
-                          nbytes)
-    print(f"[kernel] {name} B=128 h=128 ADMM-{STREAM_ITERS}: kernel {ms:.2f} ms on the "
-          f"device ({call_ms:.2f} ms per call), plain version {plain_ms:.0f} ms, bound "
-          f"{bound_ms:.4f} ms ({by}; {flops:.3e} flop, {nbytes} B) on {card}")
-
-    # ---- srb_build_dump ----
-    name = "srb_build_dump"
-    worst = 0.0
-    for B in (37, BATCH):
-        args, sw = KC.srb_dump_case(B, seed=220 + B, device=device)
-        got = SK.srb_build_dump(*args)
-        torch.cuda.synchronize()
-        errs = {}
-        for n, g, w, b in zip(("Ad", "Bd", "c"), got, SK.srb_assemble(*args),
-                              (sw.Ad, sw.Bd, sw.c)):
-            errs[n] = _maxdiff(g, w)
-            errs[n + " vs build_stagewise"] = _maxdiff(g, b)
-        print(f"[kernel] {name} B={B}: " + ", ".join(
-            f"max|d{n}|={e:.3g}" for n, e in errs.items()) + f" (tol {TOL_DUMP})")
-        check(max(errs.values()) <= TOL_DUMP, f"{name} disagrees at B={B}: {errs}")
-        worst = max(worst, *errs.values())
-    ms, call_ms = kernel_ms(lambda: SK.srb_build_dump(*args), 20, "srb_build_dump_kernel")
-    plain_ms = time_ms(lambda: SK.srb_assemble(*args), 3)
-    flops, nbytes = BATCH * (54 + 4 * 110 + 12 + 31 + 13), 4 * BATCH * (28 + 338)
-    bound_ms, by = record(name, "stagewise_srb.cu", "1225", worst, ms, plain_ms, flops, nbytes)
-    print(f"[kernel] {name} B={BATCH}: kernel {ms:.4f} ms on the device ({call_ms:.4f} ms "
-          f"per call), plain version {plain_ms:.3f} ms, bound {bound_ms:.6f} ms ({by}; "
-          f"{flops:.3e} flop, {nbytes} B) on {card}")
-    return records
-
-
-def compare_tick_kernels(device, card: str) -> dict:
-    """Kernels 2-5 of the torque tick against their plain versions at
-    TICK_CASES, from seeded numpy inputs; timed at the full stack's batch.
-    Returns {name: record}."""
-    import torch
-
-    from quad_periodic_mpc_tpu_torch.control.wbc import WBCGains
-    from quad_periodic_mpc_tpu_torch.models import floating_base as fb
-    from quad_periodic_mpc_tpu_torch.ops.cuda import kinematics_kernel as KK
-    from quad_periodic_mpc_tpu_torch.ops.cuda import plant_kernel as PK
-    from quad_periodic_mpc_tpu_torch.ops.cuda import wbc_kernel as WK
-    from quad_periodic_mpc_tpu_torch.sim.articulated_sim import ContactParams
-    from quad_periodic_mpc_tpu_torch.testing import kernel_cases as KC
-
-    mc = fb.build_a1_constants("float32", str(device))
-    gains, params, sub_dt, substeps = WBCGains(), ContactParams(), 2e-4, 10
-    eye = torch.eye(18, device=device)
-
-    def model(B):
-        st = KC.model_states(B, seed=4, device=device)
-        A, Ainv, G, C, info = KK.fused_model_eval(st, mc)
-        A_r, _, G_r, C_r, info_r = KK.model_eval_reference(st, mc)
-        errs = {"A": _maxdiff(A, A_r), "G": _maxdiff(G, G_r), "C": _maxdiff(C, C_r),
-                "Jc": _maxdiff(info.Jc, info_r.Jc), "p_foot": _maxdiff(info.p_foot, info_r.p_foot),
-                "Jcdqd": _maxdiff(info.Jcdqd, info_r.Jcdqd), "AinvA-I": _maxdiff(Ainv @ A, eye)}
-        return errs, (A, Ainv, G, C, *info), (lambda: KK.fused_model_eval(st, mc),
-                                              lambda: KK.model_eval_reference(st, mc))
-
-    def contact(B):
-        st = KC.model_states(B, seed=2, device=device)
-        got, want = KK.fused_contact_kinematics(st, mc), fb.contact_jacobians(st, mc)
-        errs = {f: _maxdiff(getattr(got, f), getattr(want, f)) for f in ("Jc", "p_foot", "Jcdqd")}
-        return errs, tuple(got), (lambda: KK.fused_contact_kinematics(st, mc),
-                                  lambda: fb.contact_jacobians(st, mc))
-
-    def wbc(B):
-        args = KC.wbc_kernel_args(*KC.wbc_state_and_input(B, device=device))
-        got = WK.fused_wbc(*args, gains, KC.WBC_PDIP)
-        want = WK.fused_wbc_reference(*args, gains, KC.WBC_PDIP)
-        errs = {n: _maxdiff(g, w) for n, g, w in zip(("q_des", "qd_des", "tau", "fr"), got, want)}
-        # where qd_des disagrees most, and the plain version's own float32
-        # error there (against itself in float64): the gap's cause
-        want64 = WK.fused_wbc_reference(*(a.double() for a in args), gains, KC.WBC_PDIP)
-        i = int((got[1] - want[1]).abs().amax(-1).argmax())
-        own = float((want[1][i] - want64[1][i]).abs().max())
-        print(f"[kernel] fused_wbc B={B}: max|dqd_des| at instance {i}, stance "
-              f"{[int(c) for c in args[5][i].tolist()]}; there the plain version's "
-              f"float32 qd_des is {own:.3g} from its float64 one")
-        return errs, got, (lambda: WK.fused_wbc(*args, gains, KC.WBC_PDIP),
-                           lambda: WK.fused_wbc_reference(*args, gains, KC.WBC_PDIP))
-
-    def plant(B):
-        case = KC.plant_case(B, device=device)
-        p0, tau, cache, Jc, pf = case
-        run = lambda fn: fn(p0, tau, sub_dt, params, cache, Jc, pf, substeps)
-        (pb, pf_b), (pa, pf_a) = run(PK.fused_substeps), run(PK.fused_substeps_reference)
-        errs = {f: _maxdiff(getattr(pb.fb, f), getattr(pa.fb, f))
-                for f in ("pos", "quat", "v_body", "q", "qd")}
-        errs["p_foot"] = _maxdiff(pf_b, pf_a)
-        errs["anchor"] = _maxdiff(pb.anchor, pa.anchor)
-        check(torch.equal(pb.in_contact, pa.in_contact), "plant kernel: contact flags differ")
-        return errs, (*pb.fb, pb.anchor, pf_b), (lambda: run(PK.fused_substeps),
-                                                 lambda: run(PK.fused_substeps_reference))
-
-    specs = {   # record name, source, kernel symbol, TPU kernel, case, flop/instance
-        "model": ("fused_model_eval", "kinematics.cu", "model_eval_kernel",
-                  "quad_periodic_mpc_tpu/ops/pallas/kinematics_kernel.py:727", model,
-                  model_eval_flops()),
-        "wbc": ("fused_wbc", "wbc.cu", "wbc_kernel",
-                "quad_periodic_mpc_tpu/ops/pallas/wbc_kernel.py:493",
-                wbc, wbc_flops(KC.WBC_PDIP.iterations)),
-        "plant": ("fused_substeps", "plant.cu", "plant_kernel",
-                  "quad_periodic_mpc_tpu/ops/pallas/plant_kernel.py:224", plant,
-                  substep_flops(substeps)),
-        "contact": ("fused_contact_kinematics", "kinematics.cu", "contact_kinematics_kernel",
-                    "quad_periodic_mpc_tpu/ops/pallas/kinematics_kernel.py:286", contact,
-                    contact_kinematics_flops(False)),
-    }
-    records = {}
-    for key, (name, src, symbol, replaces, case, flops_per) in specs.items():
-        worst = 0.0
-        for B in TICK_CASES:
-            errs, outs, (kernel_fn, plain_fn) = case(B)
-            torch.cuda.synchronize()
-            tol = {**TICK_TOL, "model": KC.MODEL_TOL, "wbc": KC.WBC_TOL,
-                   "plant": KC.PLANT_TOL}[key]
-            print(f"[kernel] {name} B={B}: " + ", ".join(
-                f"max|d{n}|={e:.3g} (tol {tol[n]})" for n, e in errs.items()))
-            check(all(bool(torch.isfinite(o).all()) for o in outs),
-                  f"{name} output not finite at B={B}")
-            for n, e in errs.items():
-                check(e <= tol[n], f"{name} disagrees with its plain version: "
-                      f"max|d{n}|={e} > {tol[n]} at B={B}")
-            worst = max(worst, *errs.values())
-            if B == FS_BATCH:
-                ms, call_ms = kernel_ms(kernel_fn, 20, symbol)
-                plain_ms = time_ms(plain_fn, 3)
-            elif B == 1 and key in ("model", "wbc", "plant"):     # the single-robot user's
-                b1_ms, b1_call_ms = kernel_ms(kernel_fn, 20, symbol)
-        per_in, per_out, shared = TICK_FLOATS[key]
-        nbytes = 4 * (FS_BATCH * (per_in + per_out) + shared)
-        flops = FS_BATCH * flops_per
-        bound_ms, bound_by = bound(flops, nbytes)
-        records[name] = {
-            "name": name, "route": "cuda", "source": f"quad_periodic_mpc_tpu_torch/csrc/{src}",
-            "replaces": replaces, "launches": 0, "max_abs_err": worst, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None,
-        }
-        print(f"[kernel] {name} B={FS_BATCH}: kernel {ms:.4f} ms on the device "
-              f"({call_ms:.4f} ms per call), plain version "
-              f"{plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by}; {flops:.3e} flop, "
-              f"{nbytes} B) on {card}")
-        if key in ("model", "wbc", "plant"):
-            print(f"[kernel] {name} B=1: kernel {b1_ms:.4f} ms on the device "
-                  f"({b1_call_ms:.4f} ms per call between CUDA events), beside "
-                  f"{ms:.4f} ({call_ms:.4f}) at B={FS_BATCH} on {card}")
-    return records
-
-
-def compare_srb_plant(device, card: str) -> dict:
-    """The SRB plant step's kernel (srb_sim.step_kernel) against
-    srb_sim.step_dense at SRB_PLANT_CASES, with the x-force and the
-    six-component disturbance, in float32 (each timed, beside the plain
-    version) and float64, to testing/kernel_cases.SRB_PLANT_TOL.  Returns
-    its record; the time is the trot cell's (B = 32,768, the x-force)."""
-    import torch
-
-    from quad_periodic_mpc_tpu_torch.config import MPCConfig
-    from quad_periodic_mpc_tpu_torch.sim import srb_sim as S
-    from quad_periodic_mpc_tpu_torch.testing import kernel_cases as KC
-
-    cfg, dt = MPCConfig(), 0.002
-    shapes = []
-    for i, (B, wrench, dtype) in enumerate(
-            (B, w, d) for B in SRB_PLANT_CASES for w in (False, True)
-            for d in (torch.float32, torch.float64)):
-        args = KC.srb_plant_case(B, seed=200 + i, device=device, wrench=wrench, dtype=dtype)
-        got = S.step_kernel(*args, cfg, dt)
-        want = S.step_dense(*args, cfg, dt)
-        torch.cuda.synchronize()
-        err = _maxdiff(got.x, want.x)
-        rel = float(((got.x - want.x).abs() / (1 + want.x.abs())).max())
-        bad = KC.srb_plant_mismatches(got, want)
-        form = "WrenchDisturbance" if wrench else "x-force"
-        tol = KC.SRB_PLANT_TOL[dtype]
-        print(f"[kernel] srb_plant_step B={B} {form} {str(dtype)[6:]}: max|dx'|={err:.3g}, "
-              f"max|dx'|/(1+|x'|)={rel:.3g} (tol {tol}), feet and t "
-              f"{'equal' if not {'p_feet', 't'} & set(bad) else 'NOT equal'}")
-        check(all(bool(torch.isfinite(a).all()) for a in got),
-              f"srb_plant_step output not finite at B={B} ({form}, {dtype})")
-        check(not bad, f"srb_plant_step disagrees with its plain version in {bad} at B={B} "
-              f"({form}, {dtype})")
-        if dtype != torch.float32:
-            continue
-        ms, call_ms = kernel_ms(lambda: S.step_kernel(*args, cfg, dt), 20,
-                                "srb_plant_step_kernel")
-        plain_ms = time_ms(lambda: S.step_dense(*args, cfg, dt), 5)
-        bound_ms, bound_by = bound(B * srb_plant_flops(wrench), srb_plant_bytes(B, wrench))
-        shapes.append({"B": B, "disturbance": form, "ms": ms, "call_ms": call_ms,
-                       "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                       "max_abs_err": err})
-        print(f"[kernel] srb_plant_step B={B} {form}: kernel {ms:.5f} ms on the device "
-              f"({call_ms:.4f} ms per call), plain version {plain_ms:.3f} ms (eager), bound "
-              f"{bound_ms:.5f} ms ({bound_by}; {srb_plant_bytes(B, wrench)} B) on {card}")
-    main = shapes[0]
-    return {
-        "name": "srb_plant_step", "route": "cuda",
-        "source": "quad_periodic_mpc_tpu_torch/csrc/srb_plant.cu", "replaces": None,
-        "launches": 0, "max_abs_err": max(r["max_abs_err"] for r in shapes),
-        "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-        "bound_by": main["bound_by"], "library_ms": None, "shapes": shapes,
-    }
-
-
-def compare_swing_update(device, card: str) -> dict:
-    """The swing update's kernel (mpc.swing_update_kernel) against
-    mpc.swing_update_plain at SWING_CASES, the trot and per-instance stacked
-    gaits, in float32 (each timed, beside the plain version) and float64, by
-    testing/kernel_cases.swing_update_mismatches.  Returns its record; the
-    time is the trot cell's (B = 32,768, the shared trot)."""
-    import torch
-
-    from quad_periodic_mpc_tpu_torch.control import mpc as M
-    from quad_periodic_mpc_tpu_torch.testing import kernel_cases as KC
-
-    shapes = []
-    for i, (B, gait, dtype) in enumerate(
-            (B, g, d) for B in SWING_CASES for g in ("trot", "stacked")
-            for d in (torch.float32, torch.float64)):
-        args = KC.swing_update_case(B, seed=300 + i, device=device, gait_kind=gait, dtype=dtype)
-        bad, gaps = KC.swing_update_mismatches(args)
-        torch.cuda.synchronize()
-        print(f"[kernel] swing_update B={B} {gait} {str(dtype)[6:]}: largest |kernel - plain| "
-              + ", ".join(f"{k} {v:.3g}" for k, v in gaps.items()))
-        check(not bad, f"swing_update disagrees with its plain version in {bad} at B={B} "
-              f"({gait}, {dtype})")
-        if dtype != torch.float32 or gait != "trot":
-            continue
-        ms, call_ms = kernel_ms(lambda: M.swing_update_kernel(*args), 20, "swing_update_kernel")
-        plain_ms = time_ms(lambda: M.swing_update_plain(*args), 5)
-        bound_ms, bound_by = bound(0, swing_update_bytes(B))
-        shapes.append({"B": B, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
-                       "bound_ms": bound_ms, "bound_by": bound_by,
-                       "max_abs_err": gaps["swing_pf"]})
-        print(f"[kernel] swing_update B={B}: kernel {ms:.5f} ms on the device "
-              f"({call_ms:.4f} ms per call), plain version {plain_ms:.3f} ms (eager), bound "
-              f"{bound_ms:.5f} ms ({bound_by}; {swing_update_bytes(B)} B) on {card}")
-    main = shapes[0]
-    return {
-        "name": "swing_update", "route": "cuda",
-        "source": "quad_periodic_mpc_tpu_torch/csrc/swing_update.cu", "replaces": None,
-        "launches": None, "max_abs_err": max(r["max_abs_err"] for r in shapes),
-        "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-        "bound_by": main["bound_by"], "library_ms": None, "shapes": shapes,
-    }
 
 
 def take_srb_plant_launches() -> int:
@@ -1572,10 +1182,10 @@ def kkt_audit(tag: str, period, ctrl, plant, cmd, gait, dist, est_cfg, dump: boo
         built = SK.srb_build_dump(
             ctrl.prev_R.contiguous(), ctrl.prev_r_feet.contiguous(),
             ctrl.prev_x_drag.contiguous(), f_for_qp.contiguous())
-        errs = [_maxdiff(g, w) for g, w in zip(built, (qp.Ad, qp.Bd, qp.c))]
-        print(f"[{tag}] fused build (srb_build_dump) vs audited problem: max|dAd|="
-              f"{errs[0]:.3g}, max|dBd|={errs[1]:.3g}, max|dc|={errs[2]:.3g} (tol {TOL_DUMP})")
-        check(max(errs) <= TOL_DUMP, f"{tag}: the kernel's build differs from the audit's")
+        bad, gaps = KC.dump_mismatches(built, (qp.Ad, qp.Bd, qp.c))
+        print(f"[{tag}] fused build (srb_build_dump) vs audited problem: " + ", ".join(
+            f"max|d{n}|={e:.3g}" for n, e in gaps.items()) + f" (tol {KC.DUMP_TOL})")
+        check(not bad, f"{tag}: the kernel's build differs from the audit's in {bad}")
     return ctrl, plant, qp
 
 
@@ -1904,143 +1514,6 @@ def single_robot(device, card: str) -> None:
           f"{B1_CHAINS} chains of {ticks} ticks on {card}")
 
 
-def compare_slice4_kernels(device, card: str) -> dict:
-    """fused_kf_innovate and fused_admm_iterations against their plain
-    versions from seeded numpy inputs, each timed at its path's shape.
-    Returns {name: record}."""
-    import torch
-
-    from quad_periodic_mpc_tpu_torch.estimation import kf as KF
-    from quad_periodic_mpc_tpu_torch.ops.cuda import admm_kernel as AK
-    from quad_periodic_mpc_tpu_torch.ops.cuda import kf_kernel as FK
-    from quad_periodic_mpc_tpu_torch.testing import kernel_cases as KC
-
-    records = {}
-
-    def hold(what, got, want, tol, names):
-        errs = {n: _maxdiff(g, w) for n, g, w in zip(names, got, want)}
-        print(f"[kernel] {what}: " + ", ".join(
-            f"max|d{n}|={errs[n]:.3g} (tol {tol[n]})" for n in names))
-        check(all(bool(torch.isfinite(g).all()) for g in got), f"{what}: output not finite")
-        for n in names:
-            check(errs[n] <= tol[n], f"{what} disagrees with its plain version: "
-                  f"max|d{n}|={errs[n]} > {tol[n]}")
-        return max(errs.values())
-
-    # ---- fused_kf_innovate ----
-    name, worst = "fused_kf_innovate", 0.0
-    kf = lambda a: FK.fused_kf_innovate(*a, dt=KC.KF_DT)
-    kf_plain = lambda a: FK.fused_kf_innovate_reference(*a, dt=KC.KF_DT)
-    for B, seed in reversed(KF_CASES):
-        args = KC.kf_case(B, seed=seed, device=device)
-        if B == 1:
-            b1_args = args
-        got = kf(args)
-        torch.cuda.synchronize()
-        want = kf_plain(args)
-        worst = max(worst, hold(f"{name} B={B} conditioned states", got, want, KC.KF_TOL, "xP"))
-        # both float32 answers against float64, instance by instance, in
-        # units of eps * cond(S): a fault of order would stand out of these
-        scaled = [KC.kf_x_error_over_conditioning(args, x) for x in (got[0], want[0])]
-        print(f"[kernel] {name} B={B}: |x' - float64| / (eps cond(S)) per instance: kernel max "
-              f"{float(scaled[0].max()):.3g} (median {float(scaled[0].median()):.3g}), plain "
-              f"version max {float(scaled[1].max()):.3g} (median {float(scaled[1].median()):.3g}); "
-              f"gate {KC.KF_COND_FACTOR}")
-        for who, r in zip(("kernel", "plain version"), scaled):
-            check(float(r.max()) < KC.KF_COND_FACTOR,
-                  f"{name} B={B}: the {who}'s x' is {float(r.max())} eps cond(S) from float64")
-    main_args, got_main = args, got                   # B = BATCH, the path's shape
-    want64 = FK.fused_kf_innovate_reference(*(a.double() for a in args), dt=KC.KF_DT)
-    print(f"[kernel] {name} B={B}: against the plain version in float64 the kernel's x' is "
-          f"{_maxdiff(got[0], want64[0]):.3g} off, the plain version's "
-          f"{_maxdiff(want[0], want64[0]):.3g}")
-    for ticks in (0, 1, 3):
-        t_args = KC.kf_transient_case(256, ticks=ticks, seed=7, device=device)
-        got, want = kf(t_args), kf_plain(t_args)
-        if ticks == 3:
-            hold(f"{name} B=256 at tick 3 of a cold start", got, want, KC.KF_TOL_TRANSIENT, "xP")
-        else:
-            want64 = FK.fused_kf_innovate_reference(*(a.double() for a in t_args), dt=KC.KF_DT)
-            print(f"[kernel] {name} B=256 at tick {ticks} of a cold start (not gated): "
-                  f"max|dx|={_maxdiff(got[0], want[0]):.3g}, max|dP|={_maxdiff(got[1], want[1]):.3g}"
-                  f"; against the plain version in float64 the kernel's P' is "
-                  f"{_maxdiff(got[1], want64[1]):.3g} off, the plain version's "
-                  f"{_maxdiff(want[1], want64[1]):.3g}")
-    ms, call_ms = kernel_ms(lambda: kf(main_args), 20, "kf_kernel")
-    plain_ms = time_ms(lambda: kf_plain(main_args), 3)
-    # the nearest thing to a library version: the "xla" backend's dense
-    # chain (products with A, B, C on PyTorch's batched matmul) on the same
-    # inputs; it is one function of the port, not one PyTorch call
-    # (it refines neither solve, so on these states it is not held to the
-    # kernel's gate: its gap is printed)
-    dense = lambda: KF.dense_predict_innovate(*main_args, KF.KFParams(dt=KC.KF_DT))
-    dense_out = dense()
-    check(all(bool(torch.isfinite(t).all()) for t in dense_out), "the dense chain is not finite")
-    print(f"[kernel] {name} B={BATCH}: the dense chain is max|dx|="
-          f"{_maxdiff(dense_out[0], got_main[0]):.3g}, max|dP|="
-          f"{_maxdiff(dense_out[1], got_main[1]):.3g} from the kernel (not gated)")
-    dense_ms = time_ms(dense, 3)
-    flops, nbytes = BATCH * kf_flops(), 4 * BATCH * 761
-    bound_ms, by = bound(flops, nbytes)
-    records[name] = {
-        "name": name, "route": "cuda", "source": "quad_periodic_mpc_tpu_torch/csrc/kf.cu",
-        "replaces": "quad_periodic_mpc_tpu/ops/pallas/kf_kernel.py:159", "launches": 0,
-        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": by, "library_ms": dense_ms,
-        "library": "estimation/kf.dense_predict_innovate, the 'xla' backend's dense chain"}
-    print(f"[kernel] {name} B={BATCH}: kernel {ms:.4f} ms on the device ({call_ms:.4f} ms per "
-          f"call), plain version {plain_ms:.3f} ms, the dense chain {dense_ms:.3f} ms, bound "
-          f"{bound_ms:.5f} ms ({by}; {flops:.3e} flop, {nbytes} B) on {card}")
-    b1_ms, b1_call_ms = kernel_ms(lambda: kf(b1_args), 20, "kf_kernel")
-    print(f"[kernel] {name} B=1: kernel {b1_ms:.4f} ms on the device ({b1_call_ms:.4f} ms per "
-          f"call between CUDA events), beside {ms:.4f} ({call_ms:.4f}) at B={BATCH} on {card}")
-
-    # ---- fused_admm_iterations ----
-    name, worst, timed = "fused_admm_iterations", 0.0, {}
-    for B, h, iters, warm, bf16 in reversed(ADMM_CASES):
-        args = KC.admm_case(B, h, seed=300 + h + B, device=device, warm=warm)
-        kw = dict(iters=iters, kinv_bf16=bf16)
-        got = AK.fused_admm_iterations(*args, **kw)
-        torch.cuda.synchronize()
-        what = (f"{name} B={B} h={h} {iters} iterations, {'non-zero' if warm else 'zero'} "
-                f"start, K^-1 {'bf16' if bf16 else 'f32'} "
-                f"{'resident' if AK.kinv_resident(12 * h, 20 * h, bf16) else 'streamed'}")
-        plain = AK.fused_admm_iterations_reference(*args, **kw)
-        if not KC.admm_f64_gated(B, h):
-            worst = max(worst, hold(what, got, plain, KC.admm_tol(h), "xzy"))
-        else:   # past admm_tol's calibration: as close to float64 as the plain version
-            exact = AK.fused_admm_iterations_reference(*(a.double() for a in args), **kw)
-            far = {n: (_maxdiff(g.double(), e), _maxdiff(w.double(), e))
-                   for n, g, w, e in zip("xzy", got, plain, exact)}
-            print(f"[kernel] {what}: |kernel - float64| / |plain version - float64| " + ", ".join(
-                f"{n} {k:.3g} / {pl:.3g}" for n, (k, pl) in far.items())
-                  + f" (gate {KC.ADMM_F64_FACTOR}x)")
-            check(all(bool(torch.isfinite(g).all()) for g in got), f"{what}: output not finite")
-            check(all(k <= KC.ADMM_F64_FACTOR * pl for k, pl in far.values()),
-                  f"{what} is farther from float64 than {KC.ADMM_F64_FACTOR}x the plain "
-                  f"version: {far}")
-            worst = max(worst, *(_maxdiff(g, w) for g, w in zip(got, plain)))
-        if (B, h) == (BATCH, HORIZON):
-            ms, call_ms = kernel_ms(lambda: AK.fused_admm_iterations(*args, **kw), 20,
-                                    "admm_kernel")
-            plain_ms = time_ms(lambda: AK.fused_admm_iterations_reference(*args, **kw), 3)
-            timed[bf16] = (ms, call_ms, plain_ms)
-    n, m = 12 * HORIZON, 20 * HORIZON
-    flops, nbytes = BATCH * admm_flops(n, m, ADMM_ITERS), admm_bytes(BATCH, n, m)
-    bound_ms, by = bound(flops, nbytes)
-    ms, call_ms, plain_ms = timed[False]
-    records[name] = {
-        "name": name, "route": "cuda", "source": "quad_periodic_mpc_tpu_torch/csrc/admm.cu",
-        "replaces": "quad_periodic_mpc_tpu/ops/pallas/admm_kernel.py:138", "launches": 0,
-        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": by, "library_ms": None, "bf16_ms": timed[True][0]}
-    print(f"[kernel] {name} B={BATCH} h={HORIZON} ADMM-{ADMM_ITERS}: kernel {ms:.3f} ms on the "
-          f"device ({call_ms:.3f} ms per call), with bf16 storage {timed[True][0]:.3f} ms "
-          f"({timed[True][1]:.3f}); plain version {plain_ms:.2f} ms (bf16 {timed[True][2]:.2f}), "
-          f"bound {bound_ms:.4f} ms ({by}; {flops:.3e} flop, {nbytes} B) on {card}")
-    return records
-
-
 def all_launch_counts() -> dict:
     """Every kernel's launch count, by record name."""
     from quad_periodic_mpc_tpu_torch.runtime import graphs
@@ -2227,16 +1700,15 @@ def condensed_line(device, card: str, bf16: bool) -> int:
     return launches
 
 
-def slice4(device, card: str) -> dict:
-    """Phases 8-10.  Returns the two kernels' records with the launches of
+def slice4(device, card: str, records: dict) -> None:
+    """Phases 9-10: the KF and ADMM kernels' records get the launches of
     their paths' counted runs."""
-    records = compare_slice4_kernels(device, card)
-    records["fused_kf_innovate"]["launches"] = estimation_path(device, card)
-    records["fused_admm_iterations"]["launches"] = condensed_line(device, card, bf16=False)
-    records["fused_admm_iterations"]["bf16_launches"] = condensed_line(device, card, bf16=True)
-    for rec in records.values():
+    kf, admm = records["fused_kf_innovate"], records["fused_admm_iterations"]
+    kf["launches"] = estimation_path(device, card)
+    admm["launches"] = condensed_line(device, card, bf16=False)
+    admm["bf16_launches"] = condensed_line(device, card, bf16=True)
+    for rec in (kf, admm):
         check(rec["launches"] > 0, f"{rec['name']} was launched on no driven path")
-    return records
 
 
 # ---------------------------------------------------------------------------
@@ -3437,7 +2909,7 @@ def dist_on_card(device, card: str) -> None:
 
 def sweeps(device, card: str) -> tuple[dict, dict, dict]:
     """Phase 16.  Returns the launches of its counted runs by kernel, the
-    fused-build launches at each of the sweeps' SRB_SHAPES, and the sweeps'
+    fused-build launches at each of the sweeps' KC.PATH_CASES, and the sweeps'
     figures of PERF.md's "where the time goes"."""
     t0 = time.perf_counter()
     by_kernel = dryrun_on_card(device, card, ref=DRYRUN_REF)
@@ -3637,26 +3109,18 @@ def force_stand(device, card: str, B: int = STAND_BATCH, ticks: int = STAND_TICK
     print(f"[force stand] FSM trace ({ticks} x {B} states) replayed on the CPU port: equal")
 
     # rows 2 and 4 against their plain versions on the first and last ticks' states
-    eye = torch.eye(18, device=device)
     for k, (pl, tau) in sorted(saved.items()):
-        A, Ainv, G, C, info = KK.fused_model_eval(pl.fb, mc)
-        A_r, _, G_r, C_r, info_r = KK.model_eval_reference(pl.fb, mc)
-        errs = {"A": _maxdiff(A, A_r), "G": _maxdiff(G, G_r), "C": _maxdiff(C, C_r),
-                "Jc": _maxdiff(info.Jc, info_r.Jc), "p_foot": _maxdiff(info.p_foot, info_r.p_foot),
-                "Jcdqd": _maxdiff(info.Jcdqd, info_r.Jcdqd), "AinvA-I": _maxdiff(Ainv @ A, eye)}
+        got = KK.fused_model_eval(pl.fb, mc)
+        bad, gaps = KC.model_eval_mismatches(got, KK.model_eval_reference(pl.fb, mc))
+        A, Ainv, G, C, info = got
         args = (pl, tau, 1e-4, art.ContactParams(), (Ainv, G, C), info.Jc, info.p_foot, 10)
-        (pb, pf_b), (pa, pf_a) = PK.fused_substeps(*args), PK.fused_substeps_reference(*args)
-        p_errs = {n: _maxdiff(getattr(pb.fb, n), getattr(pa.fb, n))
-                  for n in ("pos", "quat", "v_body", "q", "qd")}
-        p_errs.update(p_foot=_maxdiff(pf_b, pf_a), anchor=_maxdiff(pb.anchor, pa.anchor))
+        p_bad, p_gaps = KC.substeps_mismatches(PK.fused_substeps(*args),
+                                               PK.fused_substeps_reference(*args))
         print(f"[force stand] tick {k} state, B={B}: fused_model_eval " + ", ".join(
-            f"max|d{n}|={e:.3g}" for n, e in errs.items()) + "; fused_substeps " + ", ".join(
-            f"max|d{n}|={e:.3g}" for n, e in p_errs.items()))
-        for n, e in errs.items():
-            check(e <= KC.MODEL_TOL[n], f"force stand: fused_model_eval max|d{n}|={e} at tick {k}")
-        for n, e in p_errs.items():
-            check(e <= KC.PLANT_TOL[n], f"force stand: fused_substeps max|d{n}|={e} at tick {k}")
-        check(torch.equal(pb.in_contact, pa.in_contact), "force stand: contact flags differ")
+            f"max|d{n}|={e:.3g}" for n, e in gaps.items()) + "; fused_substeps " + ", ".join(
+            f"max|d{n}|={e:.3g}" for n, e in p_gaps.items()))
+        check(not bad, f"force stand: fused_model_eval disagrees in {bad} at tick {k}")
+        check(not p_bad, f"force stand: fused_substeps disagrees in {p_bad} at tick {k}")
     timing = {}
     if device.type == "cuda":
         pl, tau = saved[ticks - 1]
@@ -4810,31 +4274,6 @@ def slice10(device, card: str) -> dict:
 # slice 12: the evidence tools (phase 20)
 # ---------------------------------------------------------------------------
 
-def evidence_cell(gap: float, excess: float, ref: list, setting: str,
-                  spread: bool) -> tuple[bool, str]:
-    """20a's rule for one cell of the gap table: (held, by what).  ref is
-    JAX's [gap, largest gap over its rounding draws] on the cell (the draws
-    absent on a walking scene's production cell).  Where JAX itself misses
-    by EVIDENCE_JAX_MISS or more, a PDIP cell must miss too (by
-    EVIDENCE_MISS, or be non-finite where JAX is) and an ADMM cell lie
-    within EVIDENCE_REL of JAX's gap; elsewhere 18f's rule: the golden gate
-    (excess <= 0), or no more than 4/3 of JAX's float32 gap, of the largest
-    of its gap and its draws' on a cell of EVIDENCE_SPREAD."""
-    import math
-
-    own = ref[0]
-    if own >= EVIDENCE_JAX_MISS or not math.isfinite(own):
-        if setting.startswith("PDIP"):
-            held = gap >= EVIDENCE_MISS or (not math.isfinite(gap) and not math.isfinite(own))
-            return held, "JAX's own miss, missed too"
-        return abs(gap / own - 1.0) <= EVIDENCE_REL, f"JAX's own miss, within {EVIDENCE_REL:.0%}"
-    if excess <= 0.0:
-        return True, "gate"
-    if spread:
-        return gap <= max(ref) * 4.0 / 3.0, "4/3 JAX's draws"
-    return gap <= own * 4.0 / 3.0, "4/3 JAX"
-
-
 def evidence_table(device, card: str) -> dict:
     """20a: the port's parity_table on the card, every scene and setting
     held by evidence_cell; the walking scenes' applied first step within
@@ -5082,10 +4521,9 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
     try:
         build_kernels()
-        record = compare_kernels(device, card)
-        tick_records = compare_tick_kernels(device, card)
-        srb_plant = compare_srb_plant(device, card)
-        swing = compare_swing_update(device, card)
+        by_name = kernel_table(device, card)
+        record = by_name["fused_stagewise_solve_srb"]
+        srb_plant, swing = by_name["srb_plant_step"], by_name["swing_update"]
         plant_paths = srb_plant["launches_by_path"] = {}
         # the paths that run a swing update (bench.py's glide, on the main
         # path's timed periods and the walking lines, runs none)
@@ -5099,35 +4537,34 @@ def main() -> int:
         srb_shapes["main path"]["launches"] = record["launches"]
         dumps = counts["srb_build_dump"]
         for name, n in full_stack_path(device, card).items():
-            if name in tick_records:
-                tick_records[name]["launches"] = n
             if name == "fused_stagewise_solve_srb":
                 srb_shapes["full stack"]["launches"] = n
+            else:
+                by_name[name]["launches"] = n
         swing_paths["full stack"] = take_swing_launches()
         single_robot(device, card)
         swing_paths["single robot"] = take_swing_launches()
-        solve_records = compare_solve_kernels(device, card)
         take_srb_plant_launches()
+        solve_records = [by_name[n] for n in ("fused_stagewise_solve",
+                                               "fused_stagewise_solve_stream", "srb_build_dump")]
         counts = walking_line(device, card, "predictive", BATCH, HORIZON, ADMM_ITERS,
                               PREDICTIVE_WARM, LINE_TIMED, "fused_stagewise_solve",
                               predictive=True)
-        solve_records["fused_stagewise_solve"]["launches"] = counts["fused_stagewise_solve"]
+        solve_records[0]["launches"] = counts["fused_stagewise_solve"]
         for line in LONG_LINES:
             counts = walking_line(device, card, *line)
             dumps += counts["srb_build_dump"]
-            if line[-1] in solve_records:
-                solve_records[line[-1]]["launches"] = counts[line[-1]]
+            if line[-1] == "fused_stagewise_solve_stream":
+                solve_records[1]["launches"] = counts[line[-1]]
             if f"line {line[0]}" in srb_shapes:
                 srb_shapes[f"line {line[0]}"]["launches"] = counts["fused_stagewise_solve_srb"]
-        solve_records["srb_build_dump"]["launches"] = dumps
+        solve_records[2]["launches"] = dumps
         plant_paths["walking lines"] = take_srb_plant_launches()
-        for rec in [*solve_records.values(),
+        for rec in [*solve_records,
                     *(s for s in record["shapes"] if s["path"] not in SWEEP_SHAPES)]:
-            check(rec["launches"] > 0, f"{rec.get('name', rec.get('path'))} was launched "
-                  "on no driven path")
-        slice4_records = slice4(device, card)
-        by_name = {r["name"]: r for r in (record, *tick_records.values(),
-                                          *solve_records.values(), *slice4_records.values())}
+            check(rec.get("launches", 0) > 0, f"{rec.get('name', rec.get('path'))} was "
+                  "launched on no driven path")
+        slice4(device, card, by_name)
         take_srb_plant_launches()
         take_swing_launches()
         for path, counts in [*slice5(device, card).items(),
@@ -5191,8 +4628,7 @@ def main() -> int:
         return 1
     print("[sweep figures] " + json.dumps(sweep_figures))
     print(card)
-    print(json.dumps({"kernels": [record, *tick_records.values(), *solve_records.values(),
-                                  *slice4_records.values(), srb_plant, swing]}))
+    print(json.dumps({"kernels": list(by_name.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

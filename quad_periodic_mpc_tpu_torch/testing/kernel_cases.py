@@ -3,8 +3,9 @@
 The recipes of the reference package's kernel tests
 (``tests/test_stagewise.py``'s fused-build test, ``test_kinematics_kernel.py``,
 ``test_wbc_kernel.py``, ``test_plant_kernel.py``, ``test_kf.py``), built on the port's own
-functions, so the card tests, the CPU tests and ``chip_smoke.py`` hold each
-kernel to its plain version on the same inputs.
+functions, so the card tests and the CPU tests hold each kernel to its plain
+version, with the tolerances stated here, and ``chip_smoke.py`` times it,
+on the same inputs.
 """
 
 from __future__ import annotations
@@ -50,6 +51,107 @@ WBC_TOL = {"q_des": 1.5e-3, "qd_des": 1e-2, "tau": 5e-5, "fr": 5e-5}
 # through qdd); the contact flags must be equal.
 PLANT_TOL = {"pos": 1e-5, "quat": 1e-6, "v_body": 5e-4, "q": 1e-5, "qd": 2e-3,
              "p_foot": 1e-5, "anchor": 1e-5}
+# Fused contact kinematics vs fb.contact_jacobians: the model evaluation's
+# tolerances on the same outputs (the reference's
+# test_kinematics_kernel_matches_xla).
+CONTACT_TOL = {k: MODEL_TOL[k] for k in ("Jc", "p_foot", "Jcdqd")}
+# The stagewise kernels vs their plain versions, max abs error.  U and z are
+# forces (~100 N): FMA contraction and summation order differ between the
+# kernel and the plain version's batched products, amplified through 30
+# ADMM sweeps (the gate the reference's kernel is held to against its XLA
+# path).  y is rho-scaled (rho = 3e-4).
+STAGEWISE_TOL = {"U": 2e-3, "z": 2e-3, "y": 1e-5}
+# The streamed solve, 50 sweeps at h = 72 and 128: the same sources of
+# roundoff through a chain of h (1 + 2 iters) dependent stage steps, 12,928
+# at h = 128 against 610 at h = 10 (where the gap measures ~4e-4, and ~1e-3
+# at h = 48).  From a zero start the kernel's KKT residuals may exceed the
+# plain version's by at most STREAM_KKT_FACTOR times plus STREAM_KKT_SLACK.
+STREAM_TOL = {"U": 5e-3, "z": 5e-3, "y": 1e-5}
+STREAM_KKT_FACTOR, STREAM_KKT_SLACK = 1.1, 1e-4
+# srb_build_dump vs srb_assemble and build_stagewise's Ad, Bd, c: the same
+# entries in exact float32; only the 3x3 products inside may round
+# differently.
+DUMP_TOL = 1e-6
+# The seeds of model_states for the model evaluation's and the contact
+# kinematics' cases.
+MODEL_SEED, CONTACT_SEED = 4, 2
+
+
+# One comparison per kernel: each *_mismatches returns (the outputs that
+# break the kernel's rule, its gaps: the largest |kernel - plain| of each
+# output under the output's name, and any other figure the rule reads under
+# a name with a space).  The card tests and the CPU tests assert the first
+# is empty; chip_smoke.py's kernel table checks it at every shape it times
+# and records the second; tools/time_tick_cuda.py prints both.  A
+# non-finite output is a gap that no tolerance holds (NaN is below nothing).
+def _gaps(names, got, want) -> dict:
+    return {n: float((g - w).abs().max()) for n, g, w in zip(names, got, want)}
+
+
+def _held(gaps: dict, tol: dict) -> tuple[list, dict]:
+    return [n for n, g in gaps.items() if not g < tol[n]], gaps
+
+
+def stagewise_mismatches(got, want, tol=STAGEWISE_TOL, problem=None) -> tuple[list, dict]:
+    """A stagewise kernel's (U, z, y) against its plain version's, within
+    ``tol`` (STAGEWISE_TOL, or STREAM_TOL for the streamed solve at long
+    horizons).  Given the ``problem`` (``solve_case(..., with_problem=True)``'s),
+    also the KKT residuals of both answers: the kernel's primal and dual
+    max within STREAM_KKT_FACTOR times the plain version's plus
+    STREAM_KKT_SLACK."""
+    bad, gaps = _held(_gaps("Uzy", got, want), tol)
+    if problem is not None:
+        res = [qp_stagewise.kkt_residuals(problem, *out) for out in (got, want)]
+        for r in ("primal", "dual"):
+            kernel, plain = (float(x[r].max()) for x in res)
+            if not kernel <= STREAM_KKT_FACTOR * plain + STREAM_KKT_SLACK:
+                bad.append("KKT " + r)
+    return bad, gaps
+
+
+def dump_mismatches(got, want, built=None) -> tuple[list, dict]:
+    """srb_build_dump's (Ad, Bd, c) against srb_assemble's and, where
+    given, build_stagewise's (``srb_dump_case``'s problem): DUMP_TOL."""
+    gaps = _gaps(("Ad", "Bd", "c"), got, want)
+    if built is not None:
+        gaps.update(_gaps(("Ad built", "Bd built", "c built"), got, (built.Ad, built.Bd, built.c)))
+    return _held(gaps, dict.fromkeys(gaps, DUMP_TOL))
+
+
+def model_eval_mismatches(got, want) -> tuple[list, dict]:
+    """fused_model_eval's (A, A^{-1}, G, C, contact info) against
+    model_eval_reference's: MODEL_TOL, A^{-1} by |A^{-1} A - I|."""
+    (A, Ainv, G, C, info), (A_r, _, G_r, C_r, info_r) = got, want
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    gaps = {**_gaps("AGC", (A, G, C), (A_r, G_r, C_r)),
+            **_gaps(("Jc", "p_foot", "Jcdqd"), (info.Jc, info.p_foot, info.Jcdqd),
+                    (info_r.Jc, info_r.p_foot, info_r.Jcdqd)),
+            "AinvA-I": float((Ainv @ A - eye).abs().max())}
+    return _held(gaps, MODEL_TOL)
+
+
+def contact_mismatches(got, want) -> tuple[list, dict]:
+    """fused_contact_kinematics' info against fb.contact_jacobians':
+    CONTACT_TOL."""
+    return _held({n: float((getattr(got, n) - getattr(want, n)).abs().max())
+                  for n in CONTACT_TOL}, CONTACT_TOL)
+
+
+def wbc_mismatches(got, want) -> tuple[list, dict]:
+    """fused_wbc's (q_des, qd_des, tau, fr) against fused_wbc_reference's:
+    WBC_TOL."""
+    return _held(_gaps(WBC_TOL, got, want), WBC_TOL)
+
+
+def substeps_mismatches(got, want) -> tuple[list, dict]:
+    """fused_substeps' (plant, p_foot) against fused_substeps_reference's:
+    PLANT_TOL, and the contact flags equal."""
+    (pb, pf_b), (pa, pf_a) = got, want
+    names = ("pos", "quat", "v_body", "q", "qd")
+    gaps = _gaps(names, (getattr(pb.fb, n) for n in names), (getattr(pa.fb, n) for n in names))
+    gaps.update(_gaps(("p_foot", "anchor"), (pf_b, pb.anchor), (pf_a, pa.anchor)))
+    bad, gaps = _held(gaps, PLANT_TOL)
+    return bad + ([] if torch.equal(pb.in_contact, pa.in_contact) else ["in_contact"]), gaps
 
 
 def _t(a, device, dtype=torch.float32):
@@ -249,12 +351,14 @@ SRB_PLANT_TOL = {torch.float32: 1e-6, torch.float64: 2e-15}
 SRB_STANCES = ("mixed", "all", "none")
 
 
-def srb_plant_mismatches(got, want) -> list:
+def srb_plant_mismatches(got, want) -> tuple[list, dict]:
     """The fields of a kernel step's ``PlantState`` outside SRB_PLANT_TOL of
-    the plain version's (empty where it matches)."""
+    the plain version's (empty where it matches), and the largest
+    |kernel - plain| of each field."""
     tol = SRB_PLANT_TOL[want.x.dtype]
     bad = [] if bool(((got.x - want.x).abs() <= tol * (1 + want.x.abs())).all()) else ["x"]
-    return bad + [f for f in ("p_feet", "t") if not torch.equal(getattr(got, f), getattr(want, f))]
+    bad += [f for f in ("p_feet", "t") if not torch.equal(getattr(got, f), getattr(want, f))]
+    return bad, _gaps(("x", "p_feet", "t"), got, want)
 
 
 def srb_plant_case(B: int, seed: int = 0, device="cuda", stance: str = "mixed",
@@ -469,6 +573,21 @@ def kf_x_error_over_conditioning(args, x_new: torch.Tensor) -> torch.Tensor:
     return err / (2.0 ** -24 * torch.linalg.cond(S))
 
 
+def kf_mismatches(args, got, want, transient: bool = False) -> tuple[list, dict]:
+    """fused_kf_innovate's (x', P') on ``args`` against the plain
+    version's: KF_TOL, and both answers' x' within KF_COND_FACTOR * eps *
+    cond(S) of float64 instance by instance ("x cond kernel" / "x cond
+    plain" in the gaps); on a cold start's states (``transient``)
+    KF_TOL_TRANSIENT alone."""
+    bad, gaps = _held(_gaps("xP", got, want), KF_TOL_TRANSIENT if transient else KF_TOL)
+    if not transient:
+        for who, x_new in (("kernel", got[0]), ("plain", want[0])):
+            gaps[f"x cond {who}"] = float(kf_x_error_over_conditioning(args, x_new).max())
+            if not gaps[f"x cond {who}"] < KF_COND_FACTOR:
+                bad.append(f"x cond {who}")
+    return bad, gaps
+
+
 def kf_case(B: int, seed: int = 0, device="cuda"):
     """Conditioned seeded inputs of ``fused_kf_innovate`` (the generator of
     the reference's test_kf_pallas_kernel_matches_oracle): (xhat, P, a, y,
@@ -573,6 +692,29 @@ ADMM_TWO_A_LANE_H = 81
 ADMM_F64_FACTOR = 2.0
 
 
+def admm_mismatches(args, got, want, f64: bool | None = None, **kw) -> tuple[list, dict]:
+    """fused_admm_iterations' (x, z, y) on ``args`` (run with ``kw``:
+    iters, kinv_bf16) against the float32 plain version's within
+    admm_tol(h); or, where ``f64`` (by default admm_f64_gated(B, h)), no
+    farther from the float64 plain version than ADMM_F64_FACTOR times the
+    float32 plain version is, with those distances in the gaps as
+    "<output> kernel to f64" and "<output> plain to f64"."""
+    B, h = got[0].shape[0], got[0].shape[-1] // 12
+    gaps = _gaps("xzy", got, want)
+    if not (admm_f64_gated(B, h) if f64 is None else f64):
+        return _held(gaps, admm_tol(h))
+    from quad_periodic_mpc_tpu_torch.ops.cuda import admm_kernel
+
+    exact = admm_kernel.fused_admm_iterations_reference(*(a.double() for a in args), **kw)
+    bad = []
+    for n, g, w, e in zip("xzy", got, want, exact):
+        kernel, plain = (float((a.double() - e).abs().max()) for a in (g, w))
+        gaps.update({f"{n} kernel to f64": kernel, f"{n} plain to f64": plain})
+        if not kernel <= ADMM_F64_FACTOR * plain:
+            bad.append(n)
+    return bad, gaps
+
+
 def admm_case(B: int, h: int, seed: int = 0, device="cuda", warm: bool = False,
               with_qp: bool = False):
     """Inputs of ``fused_admm_iterations`` (K_inv, q, l, u, rho, F, x0, z0,
@@ -606,3 +748,47 @@ def admm_case(B: int, h: int, seed: int = 0, device="cuda", warm: bool = False,
         return args, type(qp)(*(a.float() if torch.is_tensor(a) and a.is_floating_point() else a
                                 for a in qp))
     return args
+
+
+# Each kernel's cases at the shapes its driven paths launch it at, with
+# their seeds: {kernel: {path: arguments of the kernel's case}}.
+# chip_smoke.py's kernel table gates and times these, the first of each
+# also beside its plain version, and tests/test_torch_kernels_gpu.py gates
+# them among its other cases, so that the timed input is a gated one.  The
+# tick kernels' seeds are their case builders' (MODEL_SEED, CONTACT_SEED,
+# the defaults of wbc_state_and_input and plant_case).
+PATH_CASES = {
+    # (B, h, ADMM iterations, seed): the main path, the h = 16 / 32 / 64
+    # lines, the full stack, the config 3 and 4 sweeps, the dry run's tier 2
+    # oracle and its chunks (16 instances over 8 entries)
+    "fused_stagewise_solve_srb": {
+        "main path": (2048, 10, 30, 100), "line h=16": (1024, 16, 40, 101),
+        "line h=32": (512, 32, 50, 102), "line h=64": (256, 64, 50, 103),
+        "full stack": (256, 10, 30, 104), "config 3 sweep": (1024, 10, 30, 105),
+        "config 4 sweep": (10000, 10, 30, 106), "dry run tier 2": (16, 32, 30, 107),
+        "dry run tier 2 chunk": (2, 32, 30, 108)},
+    # (B,): the full stack's batch and the single robot
+    "fused_model_eval": {"full stack": (256,), "single robot": (1,)},
+    "fused_wbc": {"full stack": (256,), "single robot": (1,)},
+    "fused_substeps": {"full stack": (256,), "single robot": (1,)},
+    "fused_contact_kinematics": {"full stack": (256,)},
+    # (B, h, per-step c, dense Ad, seed): the predictive path's
+    "fused_stagewise_solve": {"predictive": (2048, 10, True, False, 200)},
+    # (B, h, per-step c, warm start, seed): bench.py's h = 128 line, 50 sweeps
+    "fused_stagewise_solve_stream": {"h=128 streamed": (128, 128, False, False, 210)},
+    # (B, seed): the main path's KKT audit
+    "srb_build_dump": {"audit": (2048, 2268)},
+    # (B, seed): the estimation tick's batch and the single robot
+    "fused_kf_innovate": {"estimation tick": (2048, 10), "single robot": (1, 12)},
+    # (B, h, iterations, non-zero start, bf16 storage, seed): the condensed line
+    "fused_admm_iterations": {"condensed f32": (2048, 10, 30, False, False, 2358),
+                              "condensed bf16": (2048, 10, 30, True, True, 2358)},
+    # (B, wrench, seed): the trot cell's batch and the main path's, with the
+    # x-force and the six-component disturbance
+    "srb_plant_step": {"trot cell": (32768, False, 32768), "main path": (2048, False, 2048),
+                       "trot cell, wrench": (32768, True, 32769),
+                       "main path, wrench": (2048, True, 2049)},
+    # (B, seed): the trot cell's, the main path's and the single robot's
+    "swing_update": {"trot cell": (32768, 32772), "main path": (2048, 2052),
+                     "single robot": (1, 5)},
+}

@@ -7,7 +7,7 @@ and the h = 10 galloping scene (seed 2):
 - the two packages' QPs from ``scene_problems`` (P, q, l, u, F and the
   stagewise Ad, Bd, c) within 1e-5;
 - every cell of the port's ``gaps_for_scene`` against JAX's
-  ``gaps_for_scene`` by chip_smoke.py's 20a rule (``evidence_cell``): every
+  ``gaps_for_scene`` by the tool's own rule (``evidence_cell``): every
   cell lies under the qpOASES golden gate (atol 2e-3 N, 3e-3 N stagewise,
   rtol 1e-3) or within 4/3 of JAX's float32 gap; on the seed-6 scene's
   PDIP-40 and PDIP-40 spd (``EVIDENCE_SPREAD``) within 4/3 of the largest
@@ -37,8 +37,10 @@ torch.set_num_threads(1)
 
 import jax
 
-from chip_smoke import EVIDENCE_ATOL, EVIDENCE_SPREAD, GOLDEN_RTOL, evidence_cell
 from quad_periodic_mpc_tpu_torch.tools import parity_table as pt
+from quad_periodic_mpc_tpu_torch.tools.parity_table import (
+    EVIDENCE_ATOL, EVIDENCE_SPREAD, GOLDEN_RTOL, evidence_cell,
+)
 from tools.slice12_reference import jax_settings, jax_tool, run_main, scene_envelope
 
 REPO = Path(__file__).resolve().parents[1]

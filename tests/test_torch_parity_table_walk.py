@@ -10,7 +10,7 @@ The carried production answer, its applied first step and its objective
 excess over qpOASES's are held within 1e-3 of JAX's, relatively (each step
 is the same arithmetic, JAX's float32 ops rounding otherwise; measured:
 1.7e-4 or less).  Every other
-cell is held by chip_smoke.py's 20a rule (``evidence_cell``) to JAX's own
+cell is held by the tool's own rule (``evidence_cell``) to JAX's own
 gap (no rounding draws here): JAX's own PDIP misses (PDIP-40 spd may lose
 this solve) missed too, its ADMM misses within 2 %, else under the golden
 gate or within 4/3 of JAX's."""
@@ -24,8 +24,8 @@ torch.set_num_threads(1)
 
 import jax
 
-from chip_smoke import EVIDENCE_ATOL, GOLDEN_RTOL, evidence_cell
 from quad_periodic_mpc_tpu_torch.tools import parity_table as pt
+from quad_periodic_mpc_tpu_torch.tools.parity_table import EVIDENCE_ATOL, GOLDEN_RTOL, evidence_cell
 from tools.slice12_reference import jax_tool
 
 CPU = torch.device("cpu")

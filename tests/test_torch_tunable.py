@@ -42,7 +42,8 @@ FORCE_TOL = 5e-3
 # the untuned fused-build period against the tuned caller-built one: the
 # same problem built two ways (entries equal to ~1e-6, the dump audit's
 # gate) and 30 sweeps summed in another order; the kernel-vs-plain gate
-# (chip_smoke.TOL["U"]); the two plain versions measure ~2e-4 apart
+# (testing/kernel_cases.STAGEWISE_TOL["U"]); the two plain versions measure
+# ~2e-4 apart
 FUSED_VS_BUILT_TOL = 2e-3
 
 _HOST_READS = {torch.Tensor.item, torch.Tensor.__float__, torch.Tensor.__int__,

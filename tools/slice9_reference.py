@@ -31,7 +31,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import GOLDEN_ATOL, GOLDEN_RTOL  # noqa: E402
+from quad_periodic_mpc_tpu_torch.tools.parity_table import GOLDEN_ATOL, GOLDEN_RTOL  # noqa: E402
 from quad_periodic_mpc_tpu_torch.testing import golden  # noqa: E402
 from quad_periodic_mpc_tpu_torch.testing.fixtures import GOLDEN_SCENES, HIPS  # noqa: E402
 

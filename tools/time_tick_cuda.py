@@ -51,22 +51,22 @@ successive copies.  The copies' outputs are meaningless; only their times
 are read.  A source that matches none of a kernel's pattern lists gets no
 split.
 
-For each version it also prints the largest errors of all seven kernels
-against their plain versions (the WBC at 15 PDIP iterations, the plant at
-10 substeps, the model evaluation at B = 256 and 1, the contact
-kinematics at every batch above, the KF at every batch
+For each version it also holds all seven kernels to their plain versions
+with their comparisons in ``testing/kernel_cases`` (``KC.wbc_mismatches``,
+``KC.substeps_mismatches``, ``KC.model_eval_mismatches``,
+``KC.contact_mismatches``, ``KC.kf_mismatches``, ``KC.admm_mismatches``,
+``KC.dump_mismatches``: the card tests' rules), printing each output's
+largest gap, and fails where one breaks its rule: the WBC at 15 PDIP
+iterations, the plant at 10 substeps, the model evaluation at B = 256 and
+1, the contact kinematics at every batch above, the KF at every batch
 above, the ADMM at every shape above with 30 iterations, the dump at both
-batches), and fails where one exceeds the card tests' tolerance
-(``KC.WBC_TOL``, ``KC.PLANT_TOL``, ``KC.MODEL_TOL``, ``CONTACT_TOL``, ``KC.KF_TOL``,
-``KC.admm_tol(h)``, the dump's 1e-6) or a contact flag differs.  An ADMM
-shape that misses ``KC.admm_tol(h)`` fails, unless ``KC.admm_f64_gated(B,
-h)`` says that the first design's kernel lies past it there too (h > 28,
-or h >= 22 at hundreds of instances): such a shape is held to the float64
-plain version instead, no farther from it than ``KC.ADMM_F64_FACTOR``
-times the float32 plain version; in the checkout's first pass each such
-shape is held so on ``F64_SEEDS`` more seeds too, with every seed's
-distances and the largest ratio of the kernel's to the plain version's
-printed: the margin the factor leaves.
+batches.  An ADMM shape that ``KC.admm_f64_gated(B, h)`` names (h > 28, or
+h >= 22 at hundreds of instances, where the first design's kernel lay past
+``KC.admm_tol(h)``) is held to the float64 plain version, no farther from
+it than ``KC.ADMM_F64_FACTOR`` times the float32 plain version; in the
+checkout's first pass each such shape is held so on ``F64_SEEDS`` more
+seeds too, with every seed's distances and the largest ratio of the
+kernel's to the plain version's printed: the margin the factor leaves.
 
 ``--baseline DIR`` names another version's ``csrc`` tree (for example the
 parent commit's, unpacked with ``git archive``); its kernels are built and
@@ -136,10 +136,6 @@ ADMM_ITERS = 30
 F64_SEEDS = 8                       # more seeds for each shape held to float64
 DUMP_BATCHES = (2048, 1)
 CONTACT_BATCHES = (2048, 256, 1)
-# the contact kinematics against its plain version: chip_smoke.TICK_TOL's
-# (f32 sums in another order; tests/test_kinematics_kernel.py's tolerances)
-CONTACT_TOL = {"Jc": 2e-5, "p_foot": 2e-5, "Jcdqd": 5e-4}
-DUMP_TOL = 1e-6                     # the card tests' (same entries in exact f32)
 REPS = 10
 COLUMNS = r"constexpr int kJF32 = \d+, kJBf16 = \d+;"   # admm.cu's register columns
 SLEEP_CYCLES = 200_000_000          # ~0.1 s at the H100's clock: longer than the calls' issue
@@ -403,9 +399,9 @@ def main() -> int:
             f"substeps-{n}": (lambda c=(plant, tau, cache, Jc, pf), n=n:
                               PK.fused_substeps(c[0], c[1], 2e-4, params, c[2], c[3], c[4], n))
             for n in (1, 10)}
-        model_st[B] = KC.model_states(B, seed=4, device=dev)
+        model_st[B] = KC.model_states(B, seed=KC.MODEL_SEED, device=dev)
         cases["fused_model_eval", B] = {"": lambda st=model_st[B]: KK.fused_model_eval(st, mc)}
-    contact_st = {B: KC.model_states(B, seed=2, device=dev) for B in CONTACT_BATCHES}
+    contact_st = {B: KC.model_states(B, seed=KC.CONTACT_SEED, device=dev) for B in CONTACT_BATCHES}
     for B in CONTACT_BATCHES:
         cases["fused_contact_kinematics", B] = {
             "": lambda st=contact_st[B]: KK.fused_contact_kinematics(st, mc)}
@@ -429,12 +425,19 @@ def main() -> int:
     bits = lambda a, b: torch.equal(a.view(torch.int32), b.view(torch.int32))
     wanted = {}         # (kernel, B) -> the plain version's outputs
     outputs = {}        # tree -> {(kernel, B): {output: tensor}}
-    eye = torch.eye(18, device=dev)
 
-    def f64_far(got, plain, exact) -> dict:
-        """Each output's largest |kernel - float64| and |plain - float64|."""
-        return {n: (maxdiff(g.double(), e), maxdiff(w.double(), e))
-                for n, g, w, e in zip("xzy", got, plain, exact)}
+    def plain(key, fn):
+        """The plain version's outputs under key, computed once for every tree."""
+        if key not in wanted:
+            wanted[key] = fn()
+        return wanted[key]
+
+    def held(tree: str, what: str, result) -> bool:
+        """Prints a kernel's KC comparison with its plain version; whether it holds."""
+        bad, gaps = result
+        print(f"[error] {tree} {what}: " + ", ".join(f"max|d{n}|={e:.3g}" for n, e in gaps.items())
+              + (f"; outside its rule: {bad}" if bad else "; within its rule"))
+        return not bad
 
     def f64_margin(seeds: int) -> bool:
         """The ADMM shapes gated against float64, each on `seeds` more
@@ -444,14 +447,13 @@ def main() -> int:
         for B, h, kind in admm_args:
             if not KC.admm_f64_gated(B, h):
                 continue
-            bf, worst = kind == "bf16", dict.fromkeys("xzy", 0.0)
+            kw, worst = dict(iters=ADMM_ITERS, kinv_bf16=kind == "bf16"), dict.fromkeys("xzy", 0.0)
             for seed in range(h + B + 1, h + B + 1 + seeds):
                 a = KC.admm_case(B, h, seed=seed, device=dev, warm=True)
-                run = lambda fn, args: fn(*args, iters=ADMM_ITERS, kinv_bf16=bf)
-                far = f64_far(run(AK.fused_admm_iterations, a),
-                              run(AK.fused_admm_iterations_reference, a),
-                              run(AK.fused_admm_iterations_reference, [t.double() for t in a]))
-                ok &= all(k <= KC.ADMM_F64_FACTOR * pl for k, pl in far.values())
+                bad, gaps = KC.admm_mismatches(a, AK.fused_admm_iterations(*a, **kw),
+                                               AK.fused_admm_iterations_reference(*a, **kw), **kw)
+                ok &= not bad
+                far = {n: (gaps[f"{n} kernel to f64"], gaps[f"{n} plain to f64"]) for n in "xzy"}
                 for n, (k, pl) in far.items():
                     worst[n] = max(worst[n], k / pl if pl else 0.0 if k == 0 else float("inf"))
                 print(f"[float64] fused_admm_iterations B={B} h={h} {kind} ADMM-{ADMM_ITERS} "
@@ -466,94 +468,42 @@ def main() -> int:
         ok, mine = True, outputs.setdefault(tree, {})
         for B in (256, 1):
             wargs = KC.wbc_kernel_args(*KC.wbc_state_and_input(B, device=dev))
-            got = WK.fused_wbc(*wargs, gains, KC.WBC_PDIP)
-            if ("wbc", B) not in wanted:
-                wanted["wbc", B] = WK.fused_wbc_reference(*wargs, gains, KC.WBC_PDIP)
-            want = wanted["wbc", B]
-            errs = {n: maxdiff(g, w) for n, g, w in zip(KC.WBC_TOL, got, want)}
-            ok &= all(errs[n] < KC.WBC_TOL[n] for n in errs)
-            print(f"[error] {tree} fused_wbc B={B} PDIP-15: " + ", ".join(
-                f"max|d{n}|={e:.3g} (tol {KC.WBC_TOL[n]})" for n, e in errs.items()))
+            ok &= held(tree, f"fused_wbc B={B} PDIP-15", KC.wbc_mismatches(
+                WK.fused_wbc(*wargs, gains, KC.WBC_PDIP),
+                plain(("wbc", B), lambda: WK.fused_wbc_reference(*wargs, gains, KC.WBC_PDIP))))
             case = KC.plant_case(B, device=dev)
             run = lambda fn: fn(case[0], case[1], 2e-4, params, *case[2:], 10)
-            pb, pf_b = run(PK.fused_substeps)
-            if ("plant", B) not in wanted:
-                wanted["plant", B] = run(PK.fused_substeps_reference)
-            pa, pf_a = wanted["plant", B]
-            errs = {f: maxdiff(getattr(pb.fb, f), getattr(pa.fb, f))
-                    for f in ("pos", "quat", "v_body", "q", "qd")}
-            errs["p_foot"] = maxdiff(pf_b, pf_a)
-            errs["anchor"] = maxdiff(pb.anchor, pa.anchor)
-            same = bool(torch.equal(pb.in_contact, pa.in_contact))
-            ok &= same and all(errs[n] < KC.PLANT_TOL[n] for n in errs)
-            print(f"[error] {tree} fused_substeps B={B} substeps-10: " + ", ".join(
-                f"max|d{n}|={e:.3g} (tol {KC.PLANT_TOL[n]})" for n, e in errs.items())
-                + f", contact flags equal: {same}")
-            A, Ainv, G, C, info = KK.fused_model_eval(model_st[B], mc)
-            if ("model", B) not in wanted:
-                wanted["model", B] = KK.model_eval_reference(model_st[B], mc)
-            A_r, _, G_r, C_r, info_r = wanted["model", B]
-            errs = {"A": maxdiff(A, A_r), "G": maxdiff(G, G_r), "C": maxdiff(C, C_r),
-                    "Jc": maxdiff(info.Jc, info_r.Jc), "p_foot": maxdiff(info.p_foot, info_r.p_foot),
-                    "Jcdqd": maxdiff(info.Jcdqd, info_r.Jcdqd), "AinvA-I": maxdiff(Ainv @ A, eye)}
-            ok &= all(errs[n] < KC.MODEL_TOL[n] for n in errs)
-            print(f"[error] {tree} fused_model_eval B={B}: " + ", ".join(
-                f"max|d{n}|={e:.3g} (tol {KC.MODEL_TOL[n]})" for n, e in errs.items()))
+            ok &= held(tree, f"fused_substeps B={B} substeps-10", KC.substeps_mismatches(
+                run(PK.fused_substeps),
+                plain(("plant", B), lambda: run(PK.fused_substeps_reference))))
+            got = KK.fused_model_eval(model_st[B], mc)
+            ok &= held(tree, f"fused_model_eval B={B}", KC.model_eval_mismatches(
+                got, plain(("model", B), lambda: KK.model_eval_reference(model_st[B], mc))))
+            A, Ainv, G, C, info = got
             mine["fused_model_eval", B] = {"A": A, "Ainv": Ainv, "G": G, "C": C, "Jc": info.Jc,
                                            "Jcdqd": info.Jcdqd, "p_foot": info.p_foot}
         for B in CONTACT_BATCHES:
-            got = KK.fused_contact_kinematics(contact_st[B], mc)
-            if ("contact", B) not in wanted:
-                wanted["contact", B] = fb.contact_jacobians(contact_st[B], mc)
-            errs = {n: maxdiff(getattr(got, n), getattr(wanted["contact", B], n))
-                    for n in CONTACT_TOL}
-            ok &= all(errs[n] < CONTACT_TOL[n] for n in errs)
-            print(f"[error] {tree} fused_contact_kinematics B={B}: " + ", ".join(
-                f"max|d{n}|={e:.3g} (tol {CONTACT_TOL[n]})" for n, e in errs.items()))
+            ok &= held(tree, f"fused_contact_kinematics B={B}", KC.contact_mismatches(
+                KK.fused_contact_kinematics(contact_st[B], mc),
+                plain(("contact", B), lambda: fb.contact_jacobians(contact_st[B], mc))))
         for B in KF_BATCHES:
-            got = FK.fused_kf_innovate(*kf_args[B], dt=KC.KF_DT)
-            if ("kf", B) not in wanted:
-                wanted["kf", B] = FK.fused_kf_innovate_reference(*kf_args[B], dt=KC.KF_DT)
-            errs = {n: maxdiff(g, w) for n, g, w in zip("xP", got, wanted["kf", B])}
-            ok &= all(errs[n] < KC.KF_TOL[n] for n in errs)
-            print(f"[error] {tree} fused_kf_innovate B={B}: " + ", ".join(
-                f"max|d{n}|={e:.3g} (tol {KC.KF_TOL[n]})" for n, e in errs.items()))
+            a = kf_args[B]
+            got = FK.fused_kf_innovate(*a, dt=KC.KF_DT)
+            ok &= held(tree, f"fused_kf_innovate B={B}", KC.kf_mismatches(a, got, plain(
+                ("kf", B), lambda: FK.fused_kf_innovate_reference(*a, dt=KC.KF_DT))))
             mine["fused_kf_innovate", B] = dict(zip(("x'", "P'"), got))
         for (B, h, kind), a in admm_args.items():
-            bf = kind == "bf16"
-            got = AK.fused_admm_iterations(*a, iters=ADMM_ITERS, kinv_bf16=bf)
-            if ("admm", B, h, kind) not in wanted:
-                wanted["admm", B, h, kind] = AK.fused_admm_iterations_reference(
-                    *a, iters=ADMM_ITERS, kinv_bf16=bf)
-            errs = {n: maxdiff(g, w) for n, g, w in zip("xzy", got, wanted["admm", B, h, kind])}
-            tol = KC.admm_tol(h)
-            where = "resident" if AK.kinv_resident(12 * h, 20 * h, bf) else "streamed"
-            print(f"[error] {tree} fused_admm_iterations B={B} h={h} {kind} ADMM-{ADMM_ITERS} "
-                  f"(K^-1 {where}): " + ", ".join(
-                      f"max|d{n}|={e:.3g} (tol {tol[n]:.3g})" for n, e in errs.items()))
-            within = all(errs[n] < tol[n] for n in errs)
-            if not within and KC.admm_f64_gated(B, h):
-                # the first design lies past admm_tol here too: as accurate
-                # as the plain version
-                if ("admm64", B, h, kind) not in wanted:
-                    wanted["admm64", B, h, kind] = AK.fused_admm_iterations_reference(
-                        *(t.double() for t in a), iters=ADMM_ITERS, kinv_bf16=bf)
-                far = f64_far(got, wanted["admm", B, h, kind], wanted["admm64", B, h, kind])
-                within = all(k <= KC.ADMM_F64_FACTOR * pl for k, pl in far.values())
-                print(f"[error] {tree} fused_admm_iterations B={B} h={h} {kind}: past admm_tol, "
-                      f"so against float64 (kernel / plain version, gate "
-                      f"{KC.ADMM_F64_FACTOR}x the plain version's): " + ", ".join(
-                          f"{n} {k:.3g} / {pl:.3g}" for n, (k, pl) in far.items()))
-            ok &= within
+            kw = dict(iters=ADMM_ITERS, kinv_bf16=kind == "bf16")
+            got = AK.fused_admm_iterations(*a, **kw)
+            want = plain(("admm", B, h, kind), lambda: AK.fused_admm_iterations_reference(*a, **kw))
+            where = "resident" if AK.kinv_resident(12 * h, 20 * h, kw["kinv_bf16"]) else "streamed"
+            ok &= held(tree, f"fused_admm_iterations B={B} h={h} {kind} ADMM-{ADMM_ITERS} "
+                       f"(K^-1 {where})", KC.admm_mismatches(a, got, want, **kw))
             mine["fused_admm_iterations", f"{B} h={h} {kind} ADMM-{ADMM_ITERS}"] = dict(
                 zip("xzy", got))
         for B, a in dump_args.items():
             got = SK.srb_build_dump(*a)
-            errs = {n: maxdiff(g, w) for n, g, w in zip(("Ad", "Bd", "c"), got,
-                                                          SK.srb_assemble(*a))}
-            ok &= all(e <= DUMP_TOL for e in errs.values())
-            print(f"[error] {tree} srb_build_dump B={B}: " + ", ".join(
-                f"max|d{n}|={e:.3g} (tol {DUMP_TOL})" for n, e in errs.items()))
+            ok &= held(tree, f"srb_build_dump B={B}", KC.dump_mismatches(got, SK.srb_assemble(*a)))
             mine["srb_build_dump", B] = dict(zip(("Ad", "Bd", "c"), got))
         return ok
 
