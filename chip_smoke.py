@@ -12,7 +12,7 @@ result line) when it fails:
    (one nvcc per source, all started together), printing ptxas' registers
    and spills;
 2. the kernel table (kernel_table, one row a hand-written kernel: PERF.md
-   section 6's rows 1-12): each kernel run on testing/kernel_cases' seeded
+   section 6's rows 1-13): each kernel run on testing/kernel_cases' seeded
    inputs at the shapes its driven paths launch it at (KC.PATH_CASES), held
    to its plain PyTorch version there by its KC comparison (the card tests
    hold it on these cases and more), and timed (device ms a launch from the
@@ -27,10 +27,13 @@ result line) when it fails:
    h = 10 in float32 and with bf16 storage; the SRB plant step
    (srb_sim.step's kernel) at B = 32,768 (the trot cell's) and 2048 with
    the x-force and the six-component disturbance; the swing update at
-   32,768, 2048 and 1.  The SRB plant's launches are read on each srb-loop
-   path run in this process (exactly one a period on the
-   main path's timed periods; on the graphs path the eager warm-ups, as it
-   counts no capture or replay), none of which may be 0;
+   32,768, 2048 and 1; the foothold update at 32,768 (the terrain cell's),
+   2048 (the terrain experiment's) and 1 (a shape only).  The SRB plant's
+   launches are read on each srb-loop path run in this process (exactly one
+   a period on the main path's timed periods; on the graphs path the eager
+   warm-ups, as it counts no capture or replay), none of which may be 0;
+   the foothold update's on phase 14's map arm and config 4's sweep, none
+   of which may be 0, and on the main path, which must be 0;
 3. drive the slice-1 main path: the walking trot of bench.py (vx = 0.3,
    gait phases spread over the batch, reference disturbance) at batch
    2048, h = 10, ADMM-30 in the fused stagewise kernel, as MPC periods of
@@ -113,7 +116,8 @@ result line) when it fails:
    terrain-blind one, side by side in two spawned processes; instance 0 is
    the reference test's robot (a 6 cm riser at 0.35 m) and the others cycle
    through the 20 (riser, edge) pairs of tests/test_sweep_terrain.py; one
-   fused_stagewise_solve_srb launch a period and no other; instance 0 and
+   fused_stagewise_solve_srb launch a period and no other, one
+   foothold_update launch a control tick on the map; instance 0 and
    the median over the instances with a riser meet
    test_terrain_rollout_beats_flat's gates (final x > 0.55 in both arms; rms
    of the height-above-terrain error over the last 25 periods under 0.012
@@ -747,6 +751,17 @@ def swing_update_bytes(B: int) -> int:
         1 + 3 + 2 + 2 + 1 + 4 + 24 + 36 + 4 + 4)
 
 
+def foothold_bytes(B: int) -> int:
+    """Read once: each leg's target and its swing start (3 each: the foot
+    where first_swing is set, swing_p0 elsewhere, one of the two a leg), its
+    first_swing (1 B) and the map's center (2, shared by the four legs);
+    written once: the swing target (3); and a 32-B sector for each of three
+    scattered map reads a leg: the taken cell's traversability (the least a
+    search reads: more where it moves on) and elevation, and the swing
+    start's elevation.  540 B an instance in float32."""
+    return B * (4 * (3 * 12 + 1) + 4 * 2) + 4 * B * 3 * 32
+
+
 def admm_flops(n: int, m: int, iters: int) -> int:
     """Per instance, from csrc/admm.cu's loops: rhs (12 a variable), the
     K^{-1} product (2 n^2), the x update (3 a variable) and the z / y / w row
@@ -851,8 +866,9 @@ class Row(NamedTuple):
 
 
 def kernel_rows(device) -> list[Row]:
-    """Rows 1-12 of PERF.md section 6, in its order."""
+    """Rows 1-13 of PERF.md section 6, in its order."""
     from quad_periodic_mpc_tpu_torch.config import MPCConfig
+    from quad_periodic_mpc_tpu_torch.control import cmpc_variant as CV
     from quad_periodic_mpc_tpu_torch.control import mpc as M
     from quad_periodic_mpc_tpu_torch.control.wbc import WBCGains
     from quad_periodic_mpc_tpu_torch.estimation import kf as KF
@@ -980,6 +996,11 @@ def kernel_rows(device) -> list[Row]:
         return (lambda: M.swing_update_kernel(*args), lambda: M.swing_update_plain(*args),
                 lambda: KC.swing_update_mismatches(args), 0, swing_update_bytes(B))
 
+    def foothold(B, seed):
+        args = KC.foothold_case(B, seed=seed, device=device)
+        return (lambda: CV.foothold_update_kernel(*args), lambda: CV.foothold_update_plain(*args),
+                lambda: KC.foothold_mismatches(args), 0, foothold_bytes(B))
+
     tpu = "quad_periodic_mpc_tpu/ops/pallas/"
     return [
         Row("fused_stagewise_solve_srb", "stagewise_srb_kernel", "stagewise_srb.cu",
@@ -1000,6 +1021,7 @@ def kernel_rows(device) -> list[Row]:
         Row("fused_admm_iterations", "admm_kernel", "admm.cu", tpu + "admm_kernel.py:138", admm),
         Row("srb_plant_step", "srb_plant_step_kernel", "srb_plant.cu", None, plant, (20, 5)),
         Row("swing_update", "swing_update_kernel", "swing_update.cu", None, swing, (20, 5)),
+        Row("foothold_update", "foothold_update_kernel", "foothold.cu", None, foothold, (20, 5)),
     ]
 
 
@@ -1078,6 +1100,16 @@ def take_swing_launches() -> int:
     from quad_periodic_mpc_tpu_torch.ops.cuda import swing_update_kernel as SUK
 
     n, SUK.LAUNCHES = SUK.LAUNCHES, 0
+    return n
+
+
+def take_foothold_launches() -> int:
+    """The foothold kernel's launches since the last call, its count set to
+    0.  As the plant's: eager launches count, a graph's capture and replays
+    do not."""
+    from quad_periodic_mpc_tpu_torch.ops.cuda import foothold_kernel as FHK
+
+    n, FHK.LAUNCHES = FHK.LAUNCHES, 0
     return n
 
 
@@ -2107,7 +2139,8 @@ def terrain_arm(job: dict) -> dict:
     """One arm of phase 14 in a process of its own: loop.rollout of the
     terrain batch, map-aware (job["map"]) or terrain-blind, on the true
     surface, the stagewise launch counts set to 0 just before and read just
-    after (one fused_stagewise_solve_srb launch a period, no other); two more
+    after (one fused_stagewise_solve_srb launch a period, no other; one
+    foothold_update launch a control tick on the map, none blind); two more
     periods under the profiler; the map-aware arm's warm KKT audit with the
     fused build dumped.  Returns the launches and what the gates read: each
     instance's final x and rms of the height-above-terrain error over the
@@ -2118,6 +2151,7 @@ def terrain_arm(job: dict) -> dict:
     import quad_periodic_mpc_tpu_torch  # noqa: F401  (sets the f32 policy)
     from quad_periodic_mpc_tpu_torch.config import EstimatorConfig
     from quad_periodic_mpc_tpu_torch.control import loop as L
+    from quad_periodic_mpc_tpu_torch.ops.cuda import foothold_kernel as FHK
     from quad_periodic_mpc_tpu_torch.ops.cuda import stagewise_kernel as SK
     from quad_periodic_mpc_tpu_torch.terrain import scenario as SC
 
@@ -2136,12 +2170,17 @@ def terrain_arm(job: dict) -> dict:
 
     _sync(device)
     reset_stagewise_counts()
+    FHK.LAUNCHES = 0
     t0 = time.perf_counter()
     carry, trace = run(periods, plant, ctrl)
     _sync(device)
     secs = time.perf_counter() - t0
     counts = dict(SK.LAUNCHES)
-    launches = counts["fused_stagewise_solve_srb"]
+    launches, footholds = counts["fused_stagewise_solve_srb"], FHK.LAUNCHES
+    if device.type == "cuda":      # one foothold update a control tick on the map
+        ticks = periods * loop_cfg.iterations_between_mpc if job["map"] else 0
+        check(footholds == ticks, f"{tag}: expected {ticks} foothold_update launches, "
+              f"counted {footholds}")
     print(f"[{tag}] loop.rollout B={B}: {periods} periods in {secs:.1f} s "
           f"({1e3 * secs / periods:.1f} ms/period), fused_stagewise_solve_srb launches "
           f"{launches} ({launches / periods:g} a period) on {job['card']}")
@@ -2168,7 +2207,8 @@ def terrain_arm(job: dict) -> dict:
                   f"{tag}: the audit launched {audit}")
     x = trace.x
     err = x[..., 5] - SC.ground_z(terr, x[..., 3:5]) - 0.29
-    return {"launches": launches, "dumps": dumps, "x_final": x[:, -1, 3].cpu(),
+    return {"launches": launches, "dumps": dumps, "footholds": footholds,
+            "x_final": x[:, -1, 3].cpu(),
             "rms": err[:, -TERRAIN_TAIL:].pow(2).mean(dim=1).sqrt().cpu()}
 
 
@@ -2208,7 +2248,7 @@ def terrain_experiment(device, card: str, B: int = BATCH,
     print(f"[terrain] riser-0 instances ({int(flat.sum())}): largest |rms map - rms blind| "
           f"{np.abs(rm - rf)[flat].max():.3g} m, |x map - x blind| {np.abs(xm - xf)[flat].max():.3g} m")
     return {"fused_stagewise_solve_srb": m["launches"] + f["launches"],
-            "srb_build_dump": m["dumps"]}
+            "srb_build_dump": m["dumps"], "foothold_update": m["footholds"]}
 
 
 def camera(device):
@@ -4528,7 +4568,13 @@ def main() -> int:
         # the paths that run a swing update (bench.py's glide, on the main
         # path's timed periods and the walking lines, runs none)
         swing_paths = swing["launches_by_path"] = {}
+        # the paths that run the foothold search: those with a heightmap
+        foothold = by_name["foothold_update"]
+        foothold_paths = foothold["launches_by_path"] = {}
+        take_foothold_launches()
         counts = main_path(device, card)
+        n = take_foothold_launches()
+        check(n == 0, f"the main path passes no heightmap, yet launched foothold_update {n} times")
         srb_plant["launches"] = counts["srb_plant_step"]
         swing["launches"] = swing_paths["main path"] = counts["swing_update"]
         take_swing_launches()
@@ -4577,9 +4623,11 @@ def main() -> int:
         elevation_mapping(device, card)
         take_srb_plant_launches()
         take_swing_launches()
+        take_foothold_launches()
         by_kernel, by_shape, sweep_figures = sweeps(device, card)
         plant_paths["sweeps"] = take_srb_plant_launches()
         swing_paths["sweeps"] = take_swing_launches()
+        foothold_paths["sweeps"] = take_foothold_launches()     # config 4's map-aware sweep
         for name, n in by_kernel.items():
             by_name[name].setdefault("launches_by_path", {})["sweeps"] = n
         for path, n in by_shape.items():
@@ -4621,6 +4669,9 @@ def main() -> int:
             check(n > 0, f"srb_plant_step was launched no time on the {path} path")
         for path, n in swing_paths.items():
             check(n > 0, f"swing_update was launched no time on the {path} path")
+        foothold["launches"] = sum(foothold_paths.values())
+        for path, n in foothold_paths.items():
+            check(n > 0, f"foothold_update was launched no time on the {path} path")
         if "jax" in sys.modules or "quad_periodic_mpc_tpu" in sys.modules:
             raise SmokeFailure("JAX or the JAX package was imported")
     except SmokeFailure as e:

@@ -8,7 +8,8 @@ CMPCLocomotion driver, src/controllers/CMPC/CMPC_Locomotion.cpp).
   terrain/heightmap.select_foothold (CMPC_Locomotion_cv.cpp:768-940,
   VisionMPCLocomotion.cpp:549-640);
 - ``foothold_update``: the full _updateFoothold semantics, the terrain
-  loop's foothold hook.
+  loop's foothold hook; on a card one launch of ``csrc/foothold.cu``
+  (``foothold_update_kernel``), on the CPU ``foothold_update_plain``.
 
 - ``adaptive_gait_update``: early-contact gait reshaping through
   ops/gait_scheduler.early_contact_handle (the Gait_contact behavior,
@@ -31,6 +32,7 @@ import torch
 
 from quad_periodic_mpc_tpu_torch.estimation.kf import plane_body_height
 from quad_periodic_mpc_tpu_torch.ops import gait as gait_ops
+from quad_periodic_mpc_tpu_torch.ops.cuda import foothold_kernel
 from quad_periodic_mpc_tpu_torch.ops.gait_scheduler import early_contact_handle
 from quad_periodic_mpc_tpu_torch.terrain import heightmap as hmap
 
@@ -120,6 +122,8 @@ def foothold_update(
     search_radius_m: float = 0.10,
     traversability_min: float = 0.8,
     max_step_height: float = 0.17,
+    first_swing: torch.Tensor | None = None,   # (..., 4) bool
+    p_feet: torch.Tensor | None = None,        # (..., 4, 3) feet, world
 ) -> torch.Tensor:
     """Full _updateFoothold semantics (CMPC_Locomotion_cv.cpp:768-883):
 
@@ -132,10 +136,39 @@ def foothold_update(
     step clamped from above at MAX_STEP_HEIGHT (CMPC_Locomotion_cv.h:24 =
     0.17; :878-882 clamps only upward).
 
+    ``first_swing`` and ``p_feet``, where given: a leg whose swing starts
+    this tick (first_swing) starts from its foot, the others from ``p0``
+    (the swing-start point the terrain loop's hook hands in).
+
     The grid is world-anchored (``hm.center``), so a frozen map answers the
     same world-frame lookup.  Every target adds to ``FOOTHOLD_SEARCHED``,
     and one moved off its cell or with no valid cell to ``FOOTHOLD_MOVED``.
-    """
+
+    On a card ``foothold_update_kernel``, on the CPU ``foothold_update_plain``."""
+    update = foothold_update_kernel if pf_raibert.device.type == "cuda" else foothold_update_plain
+    return update(hm, pf_raibert, p0, search_radius_m, traversability_min, max_step_height,
+                  first_swing, p_feet)
+
+
+def foothold_update_kernel(hm, pf_raibert, p0, search_radius_m=0.10, traversability_min=0.8,
+                           max_step_height=0.17, first_swing=None, p_feet=None):
+    """``foothold_update_plain``'s update as one launch of a CUDA kernel
+    (``ops/cuda/foothold_kernel``), which adds to the counters on the
+    device."""
+    moved = _counter(FOOTHOLD_MOVED, pf_raibert.device)
+    searched = None if moved is None else _counter(FOOTHOLD_SEARCHED, pf_raibert.device)
+    return foothold_kernel.launch(
+        hm, pf_raibert, p0, hmap.spiral_table(hm, search_radius_m, torch.int32),
+        traversability_min, max_step_height, first_swing, p_feet, moved=moved,
+        searched=searched)
+
+
+def foothold_update_plain(hm, pf_raibert, p0, search_radius_m=0.10, traversability_min=0.8,
+                          max_step_height=0.17, first_swing=None, p_feet=None):
+    """``foothold_update`` in PyTorch operations, the plain version of
+    ``foothold_update_kernel``."""
+    if first_swing is not None:
+        p0 = torch.where(first_swing[..., None], p_feet, p0)
     leg_hm = _per_leg(hm)
     sel, moved = hmap.select_foothold(leg_hm, pf_raibert, search_radius_m=search_radius_m,
                                       traversability_min=traversability_min,

@@ -164,12 +164,12 @@ def period_step(
     if heightmap is not None:
         @spanned("terrain.foothold")
         def foothold_adjust(pf_target, state, obs):
-            p0 = torch.where(state.first_swing[..., None], obs.p_feet, state.swing_p0)
             return cmpc_variant.foothold_update(
-                heightmap, pf_target, p0,
+                heightmap, pf_target, state.swing_p0,
                 search_radius_m=terrain_cfg.search_radius_m,
                 traversability_min=terrain_cfg.traversability_min,
-                max_step_height=terrain_cfg.max_step_height)
+                max_step_height=terrain_cfg.max_step_height,
+                first_swing=state.first_swing, p_feet=obs.p_feet)
     else:
         foothold_adjust = None
 

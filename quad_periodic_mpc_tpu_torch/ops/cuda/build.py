@@ -98,6 +98,37 @@ def check(name: str, t, shape: tuple, device, dtype=None) -> None:
         raise ValueError(f"{name}: must be contiguous")
 
 
+class Strided(ctypes.Structure):
+    """A per-instance input as a kernel reads it (``struct Strided`` of the
+    sources that take one): element j of instance b at
+    ``p[b * row + j * col]``."""
+    _fields_ = [("p", ctypes.c_void_p), ("row", ctypes.c_longlong), ("col", ctypes.c_longlong)]
+
+
+def rows(name, t, lead, shape, device, dtype):
+    """``t`` broadcast to lead + shape and viewed as (B, prod(shape)) where
+    its strides allow (copied where they do not), and that view as a
+    ``Strided``; raise unless it is a tensor of ``dtype`` on ``device``.
+    Keep the view alive until the launch."""
+    import math
+
+    import torch
+
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    t = torch.broadcast_to(t, lead + shape)
+    B, k = math.prod(lead), math.prod(shape)
+    try:
+        t = t.view(B, k)
+    except RuntimeError:
+        t = t.contiguous().view(B, k)
+    return t, Strided(t.data_ptr(), t.stride(0), t.stride(1))
+
+
 def launch(source: str, fn_name: str, tensors, params, device) -> None:
     """Call ``fn_name(ptr..., params, stream)`` of ``csrc/<source>`` on the
     current stream of ``device``; raise on a non-zero cudaError_t.

@@ -36,10 +36,6 @@ _FULL, _TARGETS, _FINISH = 0, 1, 2      # the kernel's modes
 LAUNCHES = 0
 
 
-class _Strided(ctypes.Structure):
-    _fields_ = [("p", ctypes.c_void_p), ("row", ctypes.c_longlong), ("col", ctypes.c_longlong)]
-
-
 _INPUTS = ("p", "v", "quat", "p_feet",
            "iteration", "x_vel_des", "y_vel_des", "wpd", "rpy_int", "first_swing", "str",
            "swing_p0", "swing_pf",
@@ -58,28 +54,8 @@ class _Params(ctypes.Structure):
                     "swing_height", "p_rel_max")]
                 + [("hip", ctypes.c_double * 12), ("side_sign", ctypes.c_double * 4),
                    ("interleave_y", ctypes.c_double * 4)]
-                + [(n, _Strided) for n in _INPUTS]
+                + [(n, build.Strided) for n in _INPUTS]
                 + [(n, ctypes.c_void_p) for n in _OUTPUTS])
-
-
-def _rows(name, t, lead, shape, device, dtype):
-    """``t`` broadcast to lead + shape and viewed as (B, prod(shape)) where
-    its strides allow (copied where they do not), as the kernel's (row,
-    column) stride pair; raise unless it is a tensor of ``dtype`` on
-    ``device``."""
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    t = torch.broadcast_to(t, lead + shape)
-    B, k = math.prod(lead), math.prod(shape)
-    try:
-        t = t.view(B, k)
-    except RuntimeError:
-        t = t.contiguous().view(B, k)
-    return t, _Strided(t.data_ptr(), t.stride(0), t.stride(1))
 
 
 def launch(state, obs, cmd, gait, model, swing_cfg, loop, swing_height, tunable=None,
@@ -113,7 +89,7 @@ def launch(state, obs, cmd, gait, model, swing_cfg, loop, swing_height, tunable=
     keep, ins = [], {}
 
     def add(name, t, shape, dt=dtype):
-        view, strided = _rows(name, t, lead, shape, device, dt)
+        view, strided = build.rows(name, t, lead, shape, device, dt)
         keep.append(view)
         ins[name] = strided
 
@@ -147,9 +123,9 @@ def launch(state, obs, cmd, gait, model, swing_cfg, loop, swing_height, tunable=
             add(name + "_t", value, (4,))
             scalars[name] = 0.0
         else:
-            ins[name + "_t"] = _Strided(None, 0, 0)
+            ins[name + "_t"] = build.Strided(None, 0, 0)
             scalars[name] = float(value)
-    ins["pf_in"] = _Strided(None, 0, 0)
+    ins["pf_in"] = build.Strided(None, 0, 0)
     if pf_target is not None:
         add("pf_in", pf_target, (4, 3))
 

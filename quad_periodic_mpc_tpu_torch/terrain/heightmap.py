@@ -426,6 +426,14 @@ def spiral_offsets(radius_cells: int) -> np.ndarray:
     return np.array([(dr, dc) for _, dr, dc in offs], np.int32)
 
 
+def spiral_table(hm: HeightMap, search_radius_m: float, dtype=torch.int64) -> torch.Tensor:
+    """The (k, 2) spiral offsets of a search within ``search_radius_m`` on
+    ``hm``'s grid, as a cached device constant (``utils/consts.const``): a
+    captured step finds them made."""
+    r_cells = max(1, int(np.ceil(search_radius_m / hm.resolution)))
+    return const(spiral_offsets(r_cells), dtype, hm.elevation.device)
+
+
 def select_foothold(
     hm: HeightMap,
     pf: torch.Tensor,               # (..., 3) Raibert target, world
@@ -441,12 +449,10 @@ def select_foothold(
     keeps the target's own cell, return the exact Raibert xy instead of the
     (ceil-quantized) cell center.  return_moved: also return (...,) bool,
     the targets the search moved off their own cell or found no valid cell
-    for.  The spiral's offsets are a cached device constant
-    (``utils/consts.const``): a captured step finds them made."""
+    for.  The spiral's offsets are ``spiral_table``'s."""
     H, W = hm.elevation.shape[-2:]
     device = hm.elevation.device
-    r_cells = max(1, int(np.ceil(search_radius_m / hm.resolution)))
-    offs = const(spiral_offsets(r_cells), torch.int64, device)
+    offs = spiral_table(hm, search_radius_m)
     k = offs.shape[0]
 
     center_idx = world_to_index(hm, pf[..., 0:2])                # (..., 2)

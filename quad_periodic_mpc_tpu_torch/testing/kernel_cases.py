@@ -24,6 +24,7 @@ from quad_periodic_mpc_tpu_torch.ops.cuda import kinematics_kernel, swing_update
 from quad_periodic_mpc_tpu_torch.ops.rotations import quat_to_rotmat, rpy_to_quat
 from quad_periodic_mpc_tpu_torch.sim import articulated_sim as art
 from quad_periodic_mpc_tpu_torch.sim import srb_sim
+from quad_periodic_mpc_tpu_torch.terrain import heightmap as hmap
 
 Q_STAND = np.array([0.0, 0.8, -1.6] * 4, np.float32)
 # stance patterns of the reference's WBC kernel test
@@ -522,6 +523,104 @@ def swing_update_mismatches(args, foothold_adjust=None) -> tuple[list, dict]:
     return bad, gaps
 
 
+# Foothold kernel vs its plain version (control/cmpc_variant.
+# foothold_update_plain): selects, lookups and elementwise operations with no
+# sum, each rounded as PyTorch rounds it, so the swing targets are equal bit
+# for bit and both counters gain the same.
+FOOTHOLD_MAP = (96, 0.03)       # the terrain cell's map: cells a side, m a cell
+
+
+def foothold_case(B: int, seed: int = 0, device="cuda", dtype=torch.float32) -> tuple:
+    """The arguments of ``cmpc_variant.foothold_update``: (hm, pf_raibert,
+    swing_p0, search_radius_m, traversability_min, max_step_height,
+    first_swing, p_feet), float values drawn in ``dtype``.
+
+    B maps of FOOTHOLD_MAP, each one of eight seeded fields: elevations
+    within 2 cm of two steps (up 0.08 m, up 0.25 m, past the step clamp),
+    traversability uniform over 0.7-1 (a third of the cells below 0.8) with
+    cells at 0.8 itself and at the next number above it in ``dtype``, and
+    blocked patches of 2-10 cells; every fourth instance (instance 0 too)
+    also has a blocked 13 x 13 square, which holds the whole 0.10-m spiral
+    of leg 0's target at its middle (the fallback).  Map centers within 2 m
+    of the origin; targets within 1.6 m of the center (the map reaches
+    1.44 m), a quarter of them on cell boundaries (the center plus a whole
+    number of cells, up to 50: at the grid's edge and past it); swing
+    starts and feet within 0.3 m of the targets; ``first_swing`` random per
+    leg."""
+    H = W = FOOTHOLD_MAP[0]
+    res = FOOTHOLD_MAP[1]
+    np_dt = np.float32 if dtype == torch.float32 else np.float64
+    t = lambda a: torch.as_tensor(np.asarray(a, np_dt), device=device)
+    rng = np.random.default_rng(seed)
+    u = lambda lo, hi, *shape: rng.uniform(lo, hi, (B,) + shape)
+    M = 8
+    rows, cols = np.arange(H)[:, None], np.arange(W)[None, :]
+    elev = rng.uniform(-0.02, 0.02, (M, H, W))
+    elev += 0.08 * (cols > rng.integers(20, 60, (M, 1, 1)))
+    elev += 0.25 * (rows > rng.integers(20, 76, (M, 1, 1)))
+    trav = rng.uniform(0.7, 1.0, (M, H, W)).astype(np_dt)
+    edge = rng.random((M, H, W))
+    trav[edge < 0.03] = np_dt(0.8)
+    trav[edge > 0.97] = np.nextafter(np_dt(0.8), np_dt(1))
+    for m in range(M):
+        for _ in range(6):
+            r, c = rng.integers(0, H - 2, 2)
+            h, w = rng.integers(2, 11, 2)
+            trav[m, r:r + h, c:c + w] = 0
+    which = torch.as_tensor(rng.integers(0, M, B), device=device)
+    elevation, traversability = t(elev)[which], t(trav)[which]
+    r0, c0 = (torch.as_tensor(rng.integers(5, H - 18, B), device=device) for _ in range(2))
+    blocked = torch.arange(B, device=device) % 4 == 0
+    ar = torch.arange(H, device=device)
+    square = (blocked[:, None, None]
+              & ((ar >= r0[:, None]) & (ar < r0[:, None] + 13))[:, :, None]
+              & ((ar >= c0[:, None]) & (ar < c0[:, None] + 13))[:, None, :])
+    traversability = torch.where(square, torch.zeros((), dtype=dtype, device=device),
+                                 traversability)
+    center = u(-2, 2, 2).astype(np_dt)
+    xy = center[:, None, :] + u(-1.6, 1.6, 4, 2)
+    on_edge = rng.random((B, 4, 2)) < 0.25
+    cells = rng.integers(-50, 51, (B, 4, 2)).astype(np_dt)
+    xy = np.where(on_edge, center[:, None, :] + np_dt(res) * cells, xy.astype(np_dt))
+    # leg 0 of a blocked instance at its square's middle cell
+    mid = np.stack([W // 2 - (c0.cpu().numpy() + 6), (r0.cpu().numpy() + 6) - H // 2], -1)
+    inside = blocked.cpu().numpy()
+    xy[inside, 0] = center[inside] + np_dt(res) * mid[inside].astype(np_dt)
+    pf = np.concatenate([xy, u(0, 0.1, 4, 1)], -1)
+    start = lambda: np.concatenate([xy + u(-0.3, 0.3, 4, 2), u(0, 0.1, 4, 1)], -1)
+    hm = hmap.HeightMap(elevation=elevation, variance=torch.full_like(elevation, 1e-4),
+                        traversability=traversability, center=t(center), resolution=res)
+    first_swing = torch.as_tensor(rng.integers(0, 2, (B, 4)) == 1, device=device)
+    return hm, t(pf), t(start()), 0.10, 0.8, 0.17, first_swing, t(start())
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int32 if x.dtype == torch.float32 else torch.int64)
+
+
+def foothold_mismatches(args) -> tuple[list, dict]:
+    """``cmpc_variant.foothold_update_kernel`` on ``args``
+    (``foothold_case``'s) against ``foothold_update_plain``: (["pf"] unless
+    the swing targets are equal bit for bit, of one dtype and shape, with
+    "moved" / "searched" where the two calls added different counts to
+    that counter; the largest |kernel - plain| of pf, and the legs the
+    plain version counted moved under "moved legs")."""
+    from quad_periodic_mpc_tpu_torch.control import cmpc_variant
+
+    def counted(update):
+        before = cmpc_variant.foothold_counts()
+        out = update(*args)
+        return out, [a - b for a, b in zip(cmpc_variant.foothold_counts(), before)]
+
+    got, got_counts = counted(cmpc_variant.foothold_update_kernel)
+    want, want_counts = counted(cmpc_variant.foothold_update_plain)
+    same = (got.dtype == want.dtype and got.shape == want.shape
+            and torch.equal(_bits(got), _bits(want)))
+    bad = [] if same else ["pf"]
+    bad += [name for name, g, w in zip(("moved", "searched"), got_counts, want_counts) if g != w]
+    return bad, {"pf": float((got - want).abs().max()), "moved legs": want_counts[0]}
+
+
 # Fused KF kernel vs its plain version, max abs error over x' and P'.  On
 # conditioned states (kf_case: measurements ~N(0, 1) against r down to 1e-3,
 # x' up to ~4, P' up to ~10) the two differ by f32 sums taken in another
@@ -791,4 +890,8 @@ PATH_CASES = {
     # (B, seed): the trot cell's, the main path's and the single robot's
     "swing_update": {"trot cell": (32768, 32772), "main path": (2048, 2052),
                      "single robot": (1, 5)},
+    # (B, seed): the terrain cell's and the terrain experiment's; and one
+    # robot, the CLI's terrain rollout's shape, which no smoke path drives
+    "foothold_update": {"terrain cell": (32768, 32773), "terrain experiment": (2048, 2053),
+                        "one robot, shape only": (1, 6)},
 }

@@ -5,8 +5,8 @@ compiler against the stand-in ``cuda_runtime.h`` beside this file: a launch
 runs the grid's blocks one after another with each block's threads as
 std::threads, ``__syncwarp()`` is a barrier over the calling thread's warp
 and ``__syncthreads()`` one over the block, the warp-wide exchanges
-(``__shfl_sync``, ``__shfl_xor_sync``, ``__all_sync``) go through a slot
-per lane between two warp barriers, a launch's dynamic shared memory is one
+(``__shfl_sync``, ``__shfl_xor_sync``, ``__all_sync``, ``__ballot_sync``)
+go through a slot per lane between two warp barriers, a launch's dynamic shared memory is one
 buffer per block, and the ``cp.async`` primitives
 (``cuda_pipeline_primitives.h``) queue each thread's copies until it waits
 for them.  ``float4`` is a 16-byte aligned struct and the dynamic shared

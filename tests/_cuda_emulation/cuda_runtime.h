@@ -3,8 +3,8 @@
 // grid's blocks one after another, each block's threads as std::threads;
 // __syncwarp() is a barrier over the calling thread's warp (its 32-thread
 // slice of the block) and __syncthreads() one over the block's threads; the
-// warp-wide exchanges (__shfl_sync, __shfl_xor_sync, __all_sync) are taken
-// by every thread of the warp, whatever the mask;
+// warp-wide exchanges (__shfl_sync, __shfl_xor_sync, __all_sync,
+// __ballot_sync) are taken by every thread of the warp, whatever the mask;
 // __shared__ data is a function-local static, shared by the threads of the
 // block being run; `extern __shared__ T name[];` is rewritten to a pointer
 // to the launch's dynamic shared memory, allocated anew for each launch and
@@ -71,6 +71,8 @@ void __syncthreads();
 float __shfl_sync(unsigned mask, float v, int src_lane, int width = 32);
 float __shfl_xor_sync(unsigned mask, float v, int lane_mask, int width = 32);
 int __all_sync(unsigned mask, int predicate);
+unsigned __ballot_sync(unsigned mask, int predicate);
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 void emu_launch(int grid, int block, int smem, std::function<void()> fn);
 // kernel<<<grid, block, smem, stream>>>(args...) is rewritten to this
 #define EMU_LAUNCH(G, T, S, K, ...) emu_launch(G, T, S, [&] { K(__VA_ARGS__); })

@@ -81,6 +81,17 @@ int __all_sync(unsigned, int predicate) {
   return all;
 }
 
+unsigned __ballot_sync(unsigned, int predicate) {
+  Warp& w = my_warp();
+  const int n = w.bar.count;
+  w.slot[threadIdx.x % 32] = predicate != 0 ? 1.f : 0.f;
+  w.bar.wait();
+  unsigned votes = 0;
+  for (int i = 0; i < n; ++i) votes |= (w.slot[i] != 0.f ? 1u : 0u) << i;
+  w.bar.wait();
+  return votes;
+}
+
 void emu_launch(int grid, int block, int smem, std::function<void()> fn) {
   if (block < 1 || block > 1024) {
     fprintf(stderr, "launch of %d threads a block\n", block);

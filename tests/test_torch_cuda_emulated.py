@@ -26,12 +26,14 @@ torch.set_num_threads(1)
 from quad_periodic_mpc_tpu_torch.config import (
     ADMMConfig, EstimatorConfig, LoopConfig, MPCConfig, SwingConfig,
 )
+from quad_periodic_mpc_tpu_torch.control import cmpc_variant as CV
 from quad_periodic_mpc_tpu_torch.control import loop as L
 from quad_periodic_mpc_tpu_torch.control import mpc as M
 from quad_periodic_mpc_tpu_torch.control.wbc import WBCGains
 from quad_periodic_mpc_tpu_torch.models import floating_base as fb
 from quad_periodic_mpc_tpu_torch.ops import gait as G
 from quad_periodic_mpc_tpu_torch.ops.cuda import admm_kernel as AK
+from quad_periodic_mpc_tpu_torch.ops.cuda import foothold_kernel as FHK
 from quad_periodic_mpc_tpu_torch.ops.cuda import kf_kernel as FK
 from quad_periodic_mpc_tpu_torch.ops.cuda import kinematics_kernel as KK
 from quad_periodic_mpc_tpu_torch.ops.cuda import plant_kernel as PK
@@ -39,8 +41,11 @@ from quad_periodic_mpc_tpu_torch.ops.cuda import srb_plant_kernel as SPK
 from quad_periodic_mpc_tpu_torch.ops.cuda import stagewise_kernel as SK
 from quad_periodic_mpc_tpu_torch.ops.cuda import swing_update_kernel as SUK
 from quad_periodic_mpc_tpu_torch.ops.cuda import wbc_kernel as WK
+from quad_periodic_mpc_tpu_torch.runtime import graphs
 from quad_periodic_mpc_tpu_torch.sim import srb_sim as S
 from quad_periodic_mpc_tpu_torch.sim.articulated_sim import ContactParams
+from quad_periodic_mpc_tpu_torch.terrain import heightmap as hmap
+from quad_periodic_mpc_tpu_torch.terrain import scenario as SC
 from quad_periodic_mpc_tpu_torch.testing import kernel_cases as KC
 
 MC = fb.build_a1_constants("float32", "cpu")
@@ -324,6 +329,99 @@ def test_swing_update_kernel_in_the_closed_loop(emulated, monkeypatch):
               _maxdiff(got.plant.p_feet, want.plant.p_feet))
     assert gap <= 3e-3
     assert bool(torch.isfinite(got.plant.x).all()) and bool((got.plant.x[:, 5] > 0.15).all())
+
+
+@pytest.mark.parametrize("B,dtype", [(1, torch.float32), (37, torch.float32),
+                                     (37, torch.float64), (300, torch.float32)])
+def test_foothold_kernel(emulated, B, dtype):
+    """One foothold update in the kernel against foothold_update_plain
+    (KC.foothold_mismatches): the swing targets bit-equal, and the same
+    counts added to FOOTHOLD_MOVED and FOOTHOLD_SEARCHED, on blocked
+    patches, fully blocked spirals (the fallback), cells at 0.8 and targets
+    on cell boundaries and past the grid.  One launch a call; B = 37 and 300
+    leave the last 128-leg block ragged."""
+    args = KC.foothold_case(B, seed=B, device="cpu", dtype=dtype)
+    before = FHK.LAUNCHES
+    bad, gaps = KC.foothold_mismatches(args)
+    assert FHK.LAUNCHES == before + 1
+    assert bad == [] and gaps["moved legs"] > 0
+
+
+def test_foothold_kernel_refuses_other_dtypes(emulated):
+    """A float16 target or a float64 map beside float32 targets raises
+    TypeError; nothing launches."""
+    hm, pf, *rest = KC.foothold_case(3, device="cpu")
+    before = FHK.LAUNCHES
+    with pytest.raises(TypeError):
+        CV.foothold_update_kernel(hm, pf.half(), *rest)
+    with pytest.raises(TypeError):
+        CV.foothold_update_kernel(hm._replace(elevation=hm.elevation.double()), pf, *rest)
+    assert FHK.LAUNCHES == before
+
+
+def test_foothold_kernel_counts_nothing_without_counters(emulated, monkeypatch):
+    """With no counters (a capture before the first eager update) the
+    kernel writes the same targets and adds to no counter."""
+    args = KC.foothold_case(37, seed=5, device="cpu")
+    counted = CV.foothold_update_kernel(*args)
+    monkeypatch.setattr(CV, "_counter", lambda table, device: None)
+    before = CV.foothold_counts()
+    assert torch.equal(CV.foothold_update_kernel(*args), counted)
+    assert CV.foothold_counts() == before
+
+
+def test_foothold_kernel_broadcasts_a_shared_map(emulated):
+    """One map (no batch axis) for five instances, a swing start shared by
+    them and no first_swing: the map is read through a zero stride, bit for
+    bit the plain version's, and a batch-free call gives one instance's
+    targets."""
+    hm, pf, p0, *rest, _, _ = KC.foothold_case(5, seed=11, device="cpu")
+    shared = hmap.HeightMap(*(x[2] for x in hm[:4]), hm.resolution)
+    args = (shared, pf, p0[2], *rest, None, None)
+    before = FHK.LAUNCHES
+    bad, _ = KC.foothold_mismatches(args)
+    assert bad == [] and FHK.LAUNCHES == before + 1
+    one = CV.foothold_update_kernel(shared, pf[2], p0[2], *rest)
+    assert one.shape == (4, 3) and torch.equal(one, CV.foothold_update_plain(shared, pf[2], p0[2],
+                                                                            *rest))
+
+
+def test_foothold_kernel_in_the_terrain_loop(emulated, monkeypatch):
+    """Three terrain periods of loop.period_step at B = 4 (risers of 0-9 cm
+    at 0.20-0.35 m, 96 x 96 maps at 0.03 m) with the foothold update in the
+    kernel against the plain version: one launch a tick and the carry bit
+    for bit the plain run's (the kernel is the plain version's arithmetic,
+    the rest of the loop is the same)."""
+    B = 4
+    f32 = dict(dtype=torch.float32, device="cpu")
+    terrain = SC.StairsTerrain(edge_x=torch.linspace(0.20, 0.35, B),
+                               riser=torch.tensor([0.0, 0.03, 0.06, 0.09]), tread=10.0, n_steps=1)
+    hm = SC.build_map(terrain, size=96, resolution=0.03)
+    plant = S.init_plant((B,), body_height=0.29, device="cpu")
+    ctrl = M.init_state((B,), S.observe(plant), horizon=10, formulation="stagewise")
+    ctrl = ctrl._replace(iteration=(torch.arange(B, dtype=torch.int32) * 53) % 208)
+    cmd = M.Command(vx=torch.full((B,), 0.25, **f32), vy=torch.zeros(B, **f32),
+                    yaw_rate=torch.zeros(B, **f32), body_height=torch.full((B,), 0.29, **f32))
+    step = L.period_step(cmd, G.preset("trotting", device="cpu"),
+                         S.DisturbanceParams.zero((B,), torch.float32, "cpu"),
+                         MPCConfig(horizon=10), LoopConfig(), EstimatorConfig(),
+                         ADMMConfig(iterations=30, backend="pallas", formulation="stagewise"),
+                         swing_cfg=SwingConfig(), heightmap=hm,
+                         ground_fn=lambda xy: SC.ground_z(terrain, xy))
+
+    def run():
+        carry = L.RolloutCarry(plant, ctrl)
+        for _ in range(3):
+            carry, _ = step(carry)
+        return carry
+
+    want = run()
+    monkeypatch.setattr(CV, "foothold_update_plain", CV.foothold_update_kernel)
+    before = FHK.LAUNCHES
+    got = run()
+    assert FHK.LAUNCHES == before + 3 * LoopConfig().iterations_between_mpc
+    for g, w in zip(graphs.leaves(got), graphs.leaves(want)):
+        assert torch.equal(g, w)
 
 
 def test_stagewise_kernel(emulated):

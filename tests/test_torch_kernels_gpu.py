@@ -16,10 +16,12 @@ import torch
 torch.set_num_threads(1)
 
 from quad_periodic_mpc_tpu_torch.config import MPCConfig
+from quad_periodic_mpc_tpu_torch.control import cmpc_variant as CV
 from quad_periodic_mpc_tpu_torch.control import mpc as M
 from quad_periodic_mpc_tpu_torch.control.wbc import WBCGains
 from quad_periodic_mpc_tpu_torch.models import floating_base as fb
 from quad_periodic_mpc_tpu_torch.ops.cuda import admm_kernel as AK
+from quad_periodic_mpc_tpu_torch.ops.cuda import foothold_kernel as FHK
 from quad_periodic_mpc_tpu_torch.ops.cuda import kf_kernel as FK
 from quad_periodic_mpc_tpu_torch.ops.cuda import kinematics_kernel as KK
 from quad_periodic_mpc_tpu_torch.ops.cuda import plant_kernel as PK
@@ -346,6 +348,51 @@ def test_swing_update_kernel_replays_bit_equal_to_eager(cuda):
     assert SUK.LAUNCHES == before + graphs.WARMUP
     for g, w in zip(graphs.leaves(got), graphs.leaves(eager)):
         assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,seed", KC.PATH_CASES["foothold_update"].values())
+def test_foothold_kernel_matches_plain_version(cuda, B, seed, dtype):
+    """cmpc_variant.foothold_update on the card (one launch) against
+    foothold_update_plain at the terrain cell's B = 32,768, the terrain
+    experiment's 2,048 and the CLI's one robot, float32 and float64, by
+    KC.foothold_mismatches: the swing targets bit-equal and both counters
+    given the same counts, over blocked patches, fully blocked spirals,
+    cells at 0.8 and targets on cell boundaries and past the grid."""
+    args = KC.foothold_case(B, seed=seed, device=cuda, dtype=dtype)
+    before = FHK.LAUNCHES
+    CV.foothold_update(*args)
+    torch.cuda.synchronize()
+    assert FHK.LAUNCHES == before + 1
+    bad, gaps = KC.foothold_mismatches(args)
+    print(f"foothold_update B={B} {str(dtype)[6:]}: largest |kernel - plain| {gaps['pf']:.3g}, "
+          f"{gaps['moved legs']} of {4 * B} legs moved")
+    assert bad == []
+
+
+@pytest.mark.gpu
+def test_foothold_kernel_replays_bit_equal_to_eager(cuda):
+    """cmpc_variant.foothold_update captured in a CUDA graph
+    (runtime/graphs.capture) at B = 32,768 with its counters made: each
+    replay's targets bit-equal to the eager kernel's, and each replay adds
+    the eager call's counts to both counters.  The eager warm-up calls are
+    counted launches; the capture and the replays add nothing to
+    LAUNCHES."""
+    hm, pf, *rest = KC.foothold_case(32768, seed=7, device=cuda)
+    counts = CV.foothold_counts()
+    eager = CV.foothold_update(hm, pf, *rest)
+    once = [b - a for a, b in zip(counts, CV.foothold_counts())]
+    graphed = graphs.capture(lambda p: (CV.foothold_update(hm, p, *rest),), pf)
+    before, counts = FHK.LAUNCHES, CV.foothold_counts()
+    for _ in range(graphs.WARMUP + 2):
+        (got,) = graphed(pf)
+    torch.cuda.synchronize()
+    assert graphed.graph is not None
+    assert FHK.LAUNCHES == before + graphs.WARMUP
+    assert torch.equal(got, eager)
+    assert [b - a for a, b in zip(counts, CV.foothold_counts())] == [
+        (graphs.WARMUP + 2) * n for n in once]
 
 
 @pytest.mark.gpu
